@@ -1,0 +1,196 @@
+"""Paged decode and span attention on Hopper: wrappers of the CUDA kernels
+in ``csrc/paged_attention.cu`` and their plain-torch versions.
+
+Port of ``repro/kernels/decode_attention.py``'s ``paged_decode_attention``
+and ``paged_decode_span_attention`` (the Pallas page streams). A wrapper
+given CPU tensors computes the plain version (gather the pages, attend in
+torch); given CUDA tensors it launches the kernel or raises. Each launch
+adds one to ``launches[name]``, so a run can show which kernels its main
+path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.build import load
+
+SOURCE = "paged_attention.cu"
+launches: Dict[str, int] = {"paged_decode_attention": 0,
+                            "paged_decode_span_attention": 0}
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = load(SOURCE)
+    if lib.paged_attention.argtypes is None:
+        lib.paged_attention.argtypes = (
+            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
+            + [ctypes.c_int] * 10 + [ctypes.c_float] + [ctypes.c_int] * 3
+            + [ctypes.c_void_p])
+        lib.paged_attention.restype = ctypes.c_int
+        lib.paged_attention_plan.argtypes = (
+            [ctypes.c_int] * 10 + [ctypes.POINTER(ctypes.c_int)])
+        lib.paged_attention_plan.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(q_code: int, page_code: int, b: int, t: int, h: int, kv: int,
+          d: int, p: int, m: int, num_sms: int) -> Tuple[int, int, int]:
+    """(span tokens per block, keys per tile, key-range splits) of a
+    shape; a few shapes recur on the serving path, so plans are cached."""
+    out = (ctypes.c_int * 3)()
+    rc = _lib().paged_attention_plan(q_code, page_code, b, t, h, kv, d, p,
+                                     m, num_sms, out)
+    if rc != 0:
+        raise ValueError(f"no launch plan for B={b} T={t} H={h} KV={kv} "
+                         f"D={d} P={p} M={m} (cudaError {rc})")
+    return out[0], out[1], out[2]
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check(q, k_pages, v_pages, page_table, pos, k_scale, v_scale):
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"kernel needs CUDA tensors, got q on {dev}")
+    named = {"q": q, "k_pages": k_pages, "v_pages": v_pages,
+             "page_table": page_table, "pos": pos}
+    if k_scale is not None or v_scale is not None:
+        named.update(k_scale=k_scale, v_scale=v_scale)
+    for name, t in named.items():
+        if t is None:
+            raise ValueError(f"{name} is missing")
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, q on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    b, t, h, d = q.shape
+    n, p, kv, dp = k_pages.shape
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q dtype {q.dtype} not in (float32, bfloat16)")
+    if k_pages.dtype not in _DTYPE_CODE or v_pages.dtype != k_pages.dtype:
+        raise ValueError(f"page dtypes {k_pages.dtype}/{v_pages.dtype}")
+    if v_pages.shape != k_pages.shape or dp != d or h % kv:
+        raise ValueError(f"shapes q {tuple(q.shape)} pages "
+                         f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}")
+    quant = k_pages.dtype == torch.int8
+    if quant != (k_scale is not None and v_scale is not None):
+        raise ValueError("int8 pages need both scale pools, others none")
+    if quant:
+        for s in (k_scale, v_scale):
+            if s.dtype != torch.bfloat16 or s.shape != (n, p, kv):
+                raise ValueError(f"scale pool {s.dtype} {tuple(s.shape)}, "
+                                 f"want bfloat16 {(n, p, kv)}")
+    if page_table.dtype != torch.int32 or page_table.dim() != 2 \
+            or page_table.shape[0] != b:
+        raise ValueError(f"page_table {page_table.dtype} "
+                         f"{tuple(page_table.shape)}, want int32 (B, M)")
+    if pos.dtype != torch.int32 or pos.shape != (b,):
+        raise ValueError(f"pos {pos.dtype} {tuple(pos.shape)}, "
+                         f"want int32 ({b},)")
+
+
+def _launch(q, k_pages, v_pages, page_table, pos, k_scale, v_scale,
+            window: Optional[int], pos_offset: int) -> torch.Tensor:
+    """q (B,T,H,D) -> out (B,T,H,D); query t of row b sits at absolute
+    position pos[b] + pos_offset + t."""
+    _check(q, k_pages, v_pages, page_table, pos, k_scale, v_scale)
+    b, t, h, d = q.shape
+    n, p, kv, _ = k_pages.shape
+    out = torch.empty_like(q)
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    m = page_table.shape[1]
+    q_code, page_code = _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype]
+    tq, tk, splits = _plan(q_code, page_code, b, t, h, kv, d, p, m,
+                           _num_sms(q.device.index))
+    work = None
+    if splits > 1:  # partial softmax states of the key-range splits
+        work = torch.empty(splits * b * t * h * (d + 2),
+                           dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptr = lambda x: None if x is None else x.data_ptr()
+    rc = _lib().paged_attention(
+        q_code, page_code, ptr(q),
+        ptr(k_pages), ptr(v_pages), ptr(k_scale), ptr(v_scale),
+        ptr(page_table), ptr(pos), ptr(out), ptr(work), b, t, h, kv, d, n,
+        p, m, 0 if window is None else int(window), pos_offset,
+        float(d ** -0.5), tq, tk, splits, stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed: "
+                           f"cudaError {rc}")
+    return out
+
+
+def paged_decode_attention_plain(q, k_pages, v_pages, page_table, pos, *,
+                                 k_scale=None, v_scale=None,
+                                 window: Optional[int] = None
+                                 ) -> torch.Tensor:
+    """Gather-dequant + dense oracle: the kernel's plain version."""
+    kg = ref.paged_gather_dequant_ref(k_pages, page_table, k_scale, q.dtype)
+    vg = ref.paged_gather_dequant_ref(v_pages, page_table, v_scale, q.dtype)
+    return ref.decode_attention_ref(q, kg, vg, pos, window=window)
+
+
+def paged_decode_span_attention_plain(q, k_pages, v_pages, page_table, pos,
+                                      *, k_scale=None, v_scale=None,
+                                      window: Optional[int] = None
+                                      ) -> torch.Tensor:
+    kg = ref.paged_gather_dequant_ref(k_pages, page_table, k_scale, q.dtype)
+    vg = ref.paged_gather_dequant_ref(v_pages, page_table, v_scale, q.dtype)
+    return ref.decode_span_attention_ref(q, kg, vg, pos, window=window)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, page_table: torch.Tensor,
+                           pos: torch.Tensor, *,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """q: (B,H,D); pages (N,P,KV,D), int8 with bf16 (N,P,KV) scales;
+    page_table (B,M) int32 (unused entries point at trash page 0); pos
+    (B,) int32 valid token count. Returns (B,H,D) in q's dtype."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(
+            q, k_pages, v_pages, page_table, pos, k_scale=k_scale,
+            v_scale=v_scale, window=window)
+    out = _launch(q[:, None], k_pages, v_pages, page_table, pos, k_scale,
+                  v_scale, window, pos_offset=-1)[:, 0]
+    launches["paged_decode_attention"] += 1
+    return out
+
+
+def paged_decode_span_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                                v_pages: torch.Tensor,
+                                page_table: torch.Tensor, pos: torch.Tensor,
+                                *, k_scale: Optional[torch.Tensor] = None,
+                                v_scale: Optional[torch.Tensor] = None,
+                                window: Optional[int] = None
+                                ) -> torch.Tensor:
+    """q: (B,T,H,D), T consecutive queries at positions pos .. pos+T-1
+    (their own k/v already in the pages); pos (B,) int32 valid count
+    BEFORE the span. Other args as ``paged_decode_attention``."""
+    if q.device.type == "cpu":
+        return paged_decode_span_attention_plain(
+            q, k_pages, v_pages, page_table, pos, k_scale=k_scale,
+            v_scale=v_scale, window=window)
+    out = _launch(q, k_pages, v_pages, page_table, pos, k_scale, v_scale,
+                  window, pos_offset=0)
+    launches["paged_decode_span_attention"] += 1
+    return out

@@ -1,0 +1,68 @@
+"""Public paged-attention entry points with an implementation switch
+(``repro/kernels/ops.py`` without the mesh branch).
+
+``impl="cuda"`` launches the hand-written Hopper kernel and needs CUDA
+tensors; ``impl="ref"`` runs the plain-torch oracle (gather the pages,
+then attend) on any device. Model code picks the impl through
+``ModelContext.attn_impl``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import decode_attention as _kernels
+
+IMPLS = ("cuda", "ref")
+
+
+def _cuda_only(q: torch.Tensor, impl: str) -> None:
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "cuda" and not q.is_cuda:
+        raise ValueError("impl='cuda' needs CUDA tensors; use impl='ref' "
+                         "on the CPU")
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, page_table: torch.Tensor,
+                           pos: torch.Tensor, *,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None,
+                           impl: str = "cuda",
+                           window: Optional[int] = None) -> torch.Tensor:
+    """q: (B,H,D); pages (N,P,KV,D); page_table (B,M); pos (B,) valid
+    count. int8 pages come with (N,P,KV) bf16 ``k_scale``/``v_scale``.
+    "ref" gathers (and dequantizes) the pages and reuses the dense ring
+    oracle: no wraps, since every position is < M*P. Returns (B,H,D)."""
+    _cuda_only(q, impl)
+    if impl == "ref":
+        return _kernels.paged_decode_attention_plain(
+            q, k_pages, v_pages, page_table, pos, k_scale=k_scale,
+            v_scale=v_scale, window=window)
+    return _kernels.paged_decode_attention(
+        q, k_pages, v_pages, page_table, pos, k_scale=k_scale,
+        v_scale=v_scale, window=window)
+
+
+def paged_decode_span_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                                v_pages: torch.Tensor,
+                                page_table: torch.Tensor, pos: torch.Tensor,
+                                *, k_scale: Optional[torch.Tensor] = None,
+                                v_scale: Optional[torch.Tensor] = None,
+                                impl: str = "cuda",
+                                window: Optional[int] = None
+                                ) -> torch.Tensor:
+    """q: (B,T,H,D) at positions pos .. pos+T-1; pos (B,) valid count
+    BEFORE the span. Other args as ``paged_decode_attention``.
+    Returns (B,T,H,D)."""
+    _cuda_only(q, impl)
+    if impl == "ref":
+        return _kernels.paged_decode_span_attention_plain(
+            q, k_pages, v_pages, page_table, pos, k_scale=k_scale,
+            v_scale=v_scale, window=window)
+    return _kernels.paged_decode_span_attention(
+        q, k_pages, v_pages, page_table, pos, k_scale=k_scale,
+        v_scale=v_scale, window=window)

@@ -1,0 +1,74 @@
+"""Plain-torch twins of the paged-attention oracles in
+``repro/kernels/ref.py`` (the correctness contract of the CUDA kernels).
+
+They materialize what the kernels never do: each request's contiguous
+KV view, gathered (and dequantized) from the page pool.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, pos: torch.Tensor, *,
+                         window: Optional[int] = None) -> torch.Tensor:
+    """q: (B,H,D); caches (B,W,KV,D); pos: (B,). Ring-buffer aware."""
+    b, h, d = q.shape
+    w, kv = k_cache.shape[1], k_cache.shape[2]
+    groups = h // kv
+    dev = q.device
+    p = pos[:, None].long()
+    slot = torch.arange(w, device=dev)[None, :]
+    wraps = torch.clamp(p - 1 - slot, min=0) // w
+    abs_pos = slot + wraps * w
+    valid = abs_pos < p
+    if window is not None:
+        valid &= abs_pos >= p - window
+    kf = k_cache.repeat_interleave(groups, dim=2).float()
+    vf = v_cache.repeat_interleave(groups, dim=2).float()
+    scores = torch.einsum("bhd,bshd->bhs", q.float(), kf) * (d ** -0.5)
+    scores = torch.where(valid[:, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhs,bshd->bhd", probs, vf).to(q.dtype)
+
+
+def decode_span_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                              v_cache: torch.Tensor, pos: torch.Tensor, *,
+                              window: Optional[int] = None) -> torch.Tensor:
+    """q: (B,T,H,D); caches (B,S,KV,D) at absolute slots; pos (B,) valid
+    count BEFORE the span: query t sits at pos + t and sees slots up to
+    its own position. Returns (B,T,H,D)."""
+    t, h, d = q.shape[1], q.shape[2], q.shape[3]
+    s, kv = k_cache.shape[1], k_cache.shape[2]
+    groups = h // kv
+    dev = q.device
+    qpos = pos[:, None].long() + torch.arange(t, device=dev)[None, :]
+    spos = torch.arange(s, device=dev)[None, None, :]
+    valid = spos <= qpos[..., None]
+    if window is not None:
+        valid &= spos > qpos[..., None] - window
+    kf = k_cache.repeat_interleave(groups, dim=2).float()
+    vf = v_cache.repeat_interleave(groups, dim=2).float()
+    scores = torch.einsum("bthd,bshd->bhts", q.float(), kf) * (d ** -0.5)
+    scores = torch.where(valid[:, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhts,bshd->bthd", probs, vf).to(q.dtype)
+
+
+def paged_gather_dequant_ref(pages: torch.Tensor, page_table: torch.Tensor,
+                             scale: Optional[torch.Tensor],
+                             dtype: torch.dtype) -> torch.Tensor:
+    """(N,P,KV,D) pages + (B,M) table -> (B, M*P, KV, D) in ``dtype``;
+    ``scale`` (N,P,KV) dequantizes int8 pages."""
+    _, p, kv, d = pages.shape
+    b, m = page_table.shape
+    tab = page_table.long()
+    g = pages[tab]  # (B, M, P, KV, D)
+    if scale is not None:
+        g = g.float() * scale[tab][..., None].float()
+    return g.to(dtype).reshape(b, m * p, kv, d)

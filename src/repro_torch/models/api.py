@@ -1,0 +1,52 @@
+"""Family-agnostic model API of the port (``repro.models.api``): the
+paged-serving subset."""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+from repro_torch.models import lm
+from repro_torch.models.blocks import ModelContext
+from repro_torch.models.config import ModelConfig
+
+
+def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder models are not ported yet")
+    return lm.lm_specs(cfg)
+
+
+def supports_paged_decode(cfg: ModelConfig) -> bool:
+    """Paged KV applies to pure-attention decoder-only stacks."""
+    return (not cfg.is_encoder_decoder
+            and set(cfg.sublayer_kinds()) == {"attn"})
+
+
+def _require_paged(cfg: ModelConfig) -> None:
+    if not supports_paged_decode(cfg):
+        raise ValueError(f"{cfg.name}: no paged decode for this family")
+
+
+def paged_state_spec(cfg: ModelConfig, num_pages: int, page_size: int,
+                     max_batch: int, max_pages_per_seq: int,
+                     ctx: ModelContext) -> Dict[str, Any]:
+    _require_paged(cfg)
+    return lm.lm_paged_state_spec(cfg, num_pages, page_size, max_batch,
+                                  max_pages_per_seq, ctx)
+
+
+def decode_paged_fn(params, token, state, cfg: ModelConfig,
+                    ctx: ModelContext):
+    """One decode step against the paged KV pool (see blocks.py)."""
+    _require_paged(cfg)
+    return lm.lm_decode_step_paged(params, token, state, cfg, ctx)
+
+
+def decode_span_paged_fn(params, tokens, state, cfg: ModelConfig,
+                         ctx: ModelContext, valid=None, logits_at=None):
+    """T-token span decode against the paged pool; ``pos`` in the
+    returned state is unchanged (see lm.lm_decode_span_paged)."""
+    _require_paged(cfg)
+    return lm.lm_decode_span_paged(params, tokens, state, cfg, ctx,
+                                   valid=valid, logits_at=logits_at)

@@ -1,0 +1,309 @@
+"""Sublayer specs and the paged decode datapath (``repro.models.blocks``).
+
+A *block* is ``block_len`` sublayers; parameters of all blocks are
+stacked on a leading ``n_blocks`` axis, and lm.py runs a Python loop over
+that axis where the reference runs ``lax.scan``. Only what paged serving
+of a pure-attention decoder needs is ported: attention + dense-FFN specs,
+the paged pool layout, int8 page quantization, and one-token / T-token
+decode against the pool.
+
+Pages are a shared pool per layer: k/v of shape (num_pages, page_size, KV,
+D), plus (num_pages, page_size, KV) bf16 scale pages when the cache dtype
+is int8. A request owns a row of the (B, M) page table, padded with the
+reserved trash page 0; token ``p`` lives in page ``table[p // page_size]``
+at slot ``p % page_size``. Page writes update the pool in place (the
+reference returns a new pool; here the returned dict is the same one).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import ops as kops
+from repro_torch.models.attention import (apply_positional, decode_attention,
+                                          decode_span_attention)
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.moe import dense_ffn, dense_ffn_specs
+from repro_torch.models.ops import rms_norm
+from repro_torch.models.params import ParamSpec, ones_init, zeros_init
+
+Tensor = torch.Tensor
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of a state tensor (the port's ShapeDtypeStruct)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+class ModelContext:
+    """Runtime knobs threaded through forwards.
+
+    ``device`` defaults to the card (raising when there is none);
+    ``attn_impl`` defaults to "cuda" on a CUDA device and "ref" (the
+    gather path of models/attention.py) on the CPU."""
+
+    def __init__(self, *, compute_dtype: torch.dtype = torch.bfloat16,
+                 attn_impl: Optional[str] = None,
+                 decode_cache_dtype: Optional[torch.dtype] = None,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        if attn_impl is None:
+            attn_impl = "cuda" if self.device.type == "cuda" else "ref"
+        if attn_impl not in kops.IMPLS:
+            raise ValueError(f"attn_impl must be one of {kops.IMPLS}, "
+                             f"got {attn_impl!r}")
+        if attn_impl == "cuda" and self.device.type != "cuda":
+            raise ValueError("attn_impl='cuda' needs a CUDA device")
+        self.compute_dtype = compute_dtype
+        self.attn_impl = attn_impl
+        self.decode_cache_dtype = decode_cache_dtype  # None -> compute
+
+    @property
+    def cache_dtype(self) -> torch.dtype:
+        return self.decode_cache_dtype or self.compute_dtype
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs
+# ---------------------------------------------------------------------------
+
+
+def attn_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, h, kv, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                    cfg.resolved_head_dim)
+    specs = {
+        "wq": ParamSpec((d, h, hd), ("embed", "heads", "head_dim")),
+        "wk": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamSpec((h, hd, d), ("heads", "head_dim", "embed")),
+    }
+    if cfg.qkv_bias:
+        specs["bq"] = ParamSpec((h, hd), ("heads", "head_dim"),
+                                init=zeros_init())
+        specs["bk"] = ParamSpec((kv, hd), ("kv_heads", "head_dim"),
+                                init=zeros_init())
+        specs["bv"] = ParamSpec((kv, hd), ("kv_heads", "head_dim"),
+                                init=zeros_init())
+    return specs
+
+
+def sublayer_specs(cfg: ModelConfig, idx: int) -> Dict[str, Any]:
+    kind = cfg.sublayer_kinds()[idx]
+    if kind != "attn" or cfg.sublayer_has_moe(idx):
+        raise NotImplementedError(
+            f"{cfg.name}: sublayer {idx} ({kind}, moe="
+            f"{cfg.sublayer_has_moe(idx)}) is not ported yet")
+    d = cfg.d_model
+    return {
+        "ln1": ParamSpec((d,), ("embed",), init=ones_init()),
+        "ln2": ParamSpec((d,), ("embed",), init=ones_init()),
+        "core": attn_param_specs(cfg),
+        "mlp": dense_ffn_specs(cfg),
+    }
+
+
+def block_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    return {f"sl{i}": sublayer_specs(cfg, i) for i in range(cfg.block_len)}
+
+
+def stack_specs(specs: Any, n: int) -> Any:
+    """Add a leading stacking dim (logical axis None) to every leaf."""
+    if isinstance(specs, ParamSpec):
+        return ParamSpec((n, *specs.shape), (None, *specs.logical),
+                         specs.init, specs.dtype)
+    return {k: stack_specs(v, n) for k, v in specs.items()}
+
+
+def _project_qkv(p: Dict[str, Tensor], x: Tensor, cfg: ModelConfig,
+                 dtype: torch.dtype) -> Tuple[Tensor, Tensor, Tensor]:
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dtype))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dtype)
+        k = k + p["bk"].to(dtype)
+        v = v + p["bv"].to(dtype)
+    return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# Paged KV pool
+# ---------------------------------------------------------------------------
+
+
+def paged_quantize(x: Tensor, dtype: torch.dtype
+                   ) -> Tuple[Tensor, Optional[Tensor]]:
+    """Per-(token, kv-head) symmetric int8 quantization.
+
+    x: (..., KV, D). Returns (stored, scale or None); the scale (..., KV)
+    is bf16, the storage dtype of the scale pages, and the values are
+    quantized against that rounded scale (round half to even) so that
+    dequantization inverts exactly."""
+    if dtype != torch.int8:
+        return x.to(dtype), None
+    scale = torch.clamp(x.abs().amax(dim=-1), min=1e-8) / 127.0
+    scale = scale.to(torch.bfloat16)
+    q = torch.clamp(torch.round(x / scale[..., None].float()), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def paged_dequantize(x: Tensor, scale: Optional[Tensor],
+                     dtype: torch.dtype) -> Tensor:
+    if scale is None:
+        return x.to(dtype)
+    return (x.float() * scale[..., None]).to(dtype)
+
+
+def paged_sublayer_cache_spec(cfg: ModelConfig, num_pages: int,
+                              page_size: int, ctx: ModelContext
+                              ) -> Dict[str, TensorSpec]:
+    hd, kv = cfg.resolved_head_dim, cfg.n_kv_heads
+    cdt = ctx.cache_dtype
+    spec = {
+        "k": TensorSpec((num_pages, page_size, kv, hd), cdt),
+        "v": TensorSpec((num_pages, page_size, kv, hd), cdt),
+    }
+    if cdt == torch.int8:
+        spec["k_scale"] = TensorSpec((num_pages, page_size, kv),
+                                     torch.bfloat16)
+        spec["v_scale"] = TensorSpec((num_pages, page_size, kv),
+                                     torch.bfloat16)
+    return spec
+
+
+def paged_block_cache_spec(cfg: ModelConfig, num_pages: int, page_size: int,
+                           ctx: ModelContext) -> Dict[str, Any]:
+    kinds = set(cfg.sublayer_kinds())
+    if kinds != {"attn"}:
+        raise ValueError(
+            f"paged KV serving requires a pure-attention stack, got {kinds}")
+    return {f"sl{i}": paged_sublayer_cache_spec(cfg, num_pages, page_size,
+                                                ctx)
+            for i in range(cfg.block_len)}
+
+
+def _paged_gather(pages: Dict[str, Tensor], page_table: Tensor,
+                  dtype: torch.dtype) -> Tuple[Tensor, Tensor]:
+    """Materialize each request's KV view: (B, M*P, KV, D) in ``dtype``."""
+    _, p, kv, hd = pages["k"].shape
+    b, m = page_table.shape
+    tab = page_table.long()
+    ks, vs = pages.get("k_scale"), pages.get("v_scale")
+    kg = paged_dequantize(pages["k"][tab],
+                          None if ks is None else ks[tab], dtype)
+    vg = paged_dequantize(pages["v"][tab],
+                          None if vs is None else vs[tab], dtype)
+    shape = (b, m * p, kv, hd)
+    return kg.reshape(shape), vg.reshape(shape)
+
+
+def _write_pages(pages: Dict[str, Tensor], pid: Tensor, slot: Tensor,
+                 k: Tensor, v: Tensor, cache_dtype: torch.dtype) -> None:
+    """Quantize and scatter k/v (pid/slot-shaped leading dims) in place.
+    Duplicate targets only ever hit the trash page 0, never read as
+    valid, so their nondeterministic order is harmless."""
+    kq, ks = paged_quantize(k, cache_dtype)
+    vq, vs = paged_quantize(v, cache_dtype)
+    pages["k"][pid, slot] = kq
+    pages["v"][pid, slot] = vq
+    if ks is not None:
+        pages["k_scale"][pid, slot] = ks
+        pages["v_scale"][pid, slot] = vs
+
+
+def _table_lookup(page_table: Tensor, bidx: Tensor, posn: Tensor,
+                  page_size: int) -> Tensor:
+    """Owning page of each position; page indices past the row clamp to
+    its last entry, as the reference's gather does."""
+    col = torch.clamp(posn // page_size, 0, page_table.shape[1] - 1)
+    return page_table[bidx, col.long()].long()
+
+
+def _attn_out_mlp(p, x, out, cfg: ModelConfig, ctx: ModelContext) -> Tensor:
+    dtype = ctx.compute_dtype
+    core = torch.einsum("bshk,hkd->bsd", out, p["core"]["wo"].to(dtype))
+    x = x + core
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + dense_ffn(p["mlp"], h, cfg, dtype)
+
+
+def sublayer_decode_paged(p, x: Tensor, pages: Dict[str, Tensor],
+                          page_table: Tensor, pos: Tensor, cfg: ModelConfig,
+                          ctx: ModelContext, idx: int
+                          ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """One-token decode against the paged pool. x: (B,1,D); pos: (B,)."""
+    dtype = ctx.compute_dtype
+    b = x.shape[0]
+    page_size = pages["k"].shape[1]
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _project_qkv(p["core"], h, cfg, dtype)
+    q, k = apply_positional(q, k, cfg, pos[:, None])
+    bidx = torch.arange(b, device=x.device)
+    pid = _table_lookup(page_table, bidx, pos, page_size)
+    slot = (pos % page_size).long()
+    _write_pages(pages, pid, slot, k[:, 0], v[:, 0], ctx.cache_dtype)
+    if ctx.attn_impl == "cuda":
+        # stream pages through the kernel: no contiguous per-request view
+        out = kops.paged_decode_attention(
+            q[:, 0], pages["k"], pages["v"], page_table, pos + 1,
+            k_scale=pages.get("k_scale"), v_scale=pages.get("v_scale"),
+            impl="cuda", window=cfg.sliding_window)[:, None]
+    else:
+        kg, vg = _paged_gather(pages, page_table, dtype)
+        out = decode_attention(q, kg, vg, pos + 1, cfg)
+    return _attn_out_mlp(p, x, out, cfg, ctx), pages
+
+
+def block_decode_paged(block_params, x, pages, page_table, pos, cfg, ctx):
+    for i in range(cfg.block_len):
+        x, _ = sublayer_decode_paged(
+            block_params[f"sl{i}"], x, pages[f"sl{i}"], page_table, pos,
+            cfg, ctx, i)
+    return x, pages
+
+
+def sublayer_decode_span_paged(p, x: Tensor, pages: Dict[str, Tensor],
+                               page_table: Tensor, pos: Tensor, live: Tensor,
+                               cfg: ModelConfig, ctx: ModelContext, idx: int
+                               ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """T-token span decode against the paged pool.
+
+    x: (B,T,D) at absolute positions ``pos .. pos+T-1``; live: (B,T)
+    bool, False for padded span slots, whose writes go to trash page 0.
+    The span's k/v are written first, then query t attends causally
+    through position pos + t."""
+    dtype = ctx.compute_dtype
+    b, t, _ = x.shape
+    page_size = pages["k"].shape[1]
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _project_qkv(p["core"], h, cfg, dtype)
+    posn = pos[:, None] + torch.arange(t, device=x.device,
+                                       dtype=pos.dtype)[None, :]
+    q, k = apply_positional(q, k, cfg, posn)
+    bidx = torch.arange(b, device=x.device)[:, None]
+    pid = torch.where(live, _table_lookup(page_table, bidx, posn, page_size),
+                      0)
+    slot = (posn % page_size).long()
+    _write_pages(pages, pid, slot, k, v, ctx.cache_dtype)
+    if ctx.attn_impl == "cuda":
+        out = kops.paged_decode_span_attention(
+            q, pages["k"], pages["v"], page_table, pos,
+            k_scale=pages.get("k_scale"), v_scale=pages.get("v_scale"),
+            impl="cuda", window=cfg.sliding_window)
+    else:
+        kg, vg = _paged_gather(pages, page_table, dtype)
+        out = decode_span_attention(q, kg, vg, pos, cfg)
+    return _attn_out_mlp(p, x, out, cfg, ctx), pages
+
+
+def block_decode_span_paged(block_params, x, pages, page_table, pos, live,
+                            cfg, ctx):
+    for i in range(cfg.block_len):
+        x, _ = sublayer_decode_span_paged(
+            block_params[f"sl{i}"], x, pages[f"sl{i}"], page_table, pos,
+            live, cfg, ctx, i)
+    return x, pages

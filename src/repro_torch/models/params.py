@@ -1,0 +1,128 @@
+"""Parameter specification and initialization (``repro.models.params``).
+
+A model is a nested dict of ``ParamSpec`` leaves. ``init_params`` draws
+every leaf from its own ``torch.Generator`` seeded from the run seed and
+the leaf's path, so full-width weights are made on the card without JAX.
+``params_from_numpy`` is the weight bridge: it turns the JAX reference's
+parameter tree (as numpy arrays) into the port's tensors, path for path,
+keeping the stacked leading ``n_blocks`` axis of ``blocks.stack_specs``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+Initializer = Callable[[torch.Generator, Tuple[int, ...], torch.dtype,
+                        torch.device], torch.Tensor]
+Tree = Dict[str, Any]
+
+
+def normal_init(stddev: float = 0.02) -> Initializer:
+    def init(gen, shape, dtype, device):
+        x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        return (x * stddev).to(dtype)
+    return init
+
+
+def zeros_init() -> Initializer:
+    def init(gen, shape, dtype, device):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return init
+
+
+def ones_init() -> Initializer:
+    def init(gen, shape, dtype, device):
+        return torch.ones(shape, dtype=dtype, device=device)
+    return init
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...]
+    init: Initializer = dataclasses.field(default_factory=normal_init)
+    dtype: Optional[torch.dtype] = None  # None -> model default
+
+    def __post_init__(self) -> None:
+        if len(self.shape) != len(self.logical):
+            raise ValueError(
+                f"shape {self.shape} rank != logical {self.logical}")
+
+
+# -- nested-dict trees ------------------------------------------------------
+
+
+def tree_items(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(path, leaf) for every leaf of a nested dict, in key order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_items(tree[k], f"{prefix}/{k}" if prefix else k)
+    else:
+        yield prefix, tree
+
+
+def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_index(tree: Any, i: int) -> Any:
+    """Slice every leaf of a stacked tree at index ``i`` of its leading
+    axis (one layer's parameters or pages; views, no copies)."""
+    return tree_map(lambda x: x[i], tree)
+
+
+def _fold_path(seed: int, path: str) -> int:
+    """32-bit generator seed of one leaf: FNV-1a over the run seed's
+    bytes then the path (the CPU generator keeps only 32 seed bits)."""
+    h = 2166136261
+    for ch in seed.to_bytes(8, "little", signed=True) + path.encode():
+        h = ((h ^ ch) * 16777619) & 0xFFFFFFFF
+    return h
+
+
+def init_params(spec_tree: Tree, seed: int = 0,
+                dtype: torch.dtype = torch.float32,
+                device: DeviceLike = None) -> Tree:
+    """Materialize parameters on ``device`` (the card unless the caller
+    asks for the CPU); each leaf draws from a generator seeded by the
+    run seed and its path."""
+    dev = resolve_device(device)
+
+    def build(path: str, spec: ParamSpec) -> torch.Tensor:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(_fold_path(seed, path))
+        return spec.init(gen, spec.shape, spec.dtype or dtype, dev)
+
+    def walk(node: Any, prefix: str) -> Any:
+        if isinstance(node, ParamSpec):
+            return build(prefix, node)
+        return {k: walk(v, f"{prefix}/{k}" if prefix else k)
+                for k, v in node.items()}
+
+    return walk(spec_tree, "")
+
+
+def params_from_numpy(tree: Tree, device: DeviceLike = None,
+                      dtype: Optional[torch.dtype] = None) -> Tree:
+    """The weight bridge: a nested dict of numpy arrays (the JAX
+    reference's ``init_params`` tree after ``np.asarray``) becomes the
+    port's tensors by path, shapes unchanged. ``dtype`` casts floating
+    leaves; integer leaves keep theirs."""
+    dev = resolve_device(device)
+
+    def leaf(a: Any) -> torch.Tensor:
+        t = torch.from_numpy(np.array(a, copy=True))
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(dev)
+
+    return tree_map(leaf, tree)

@@ -1,0 +1,668 @@
+"""Continuous-batching serving engine of the port (``repro.serve.engine``).
+
+The single-host paged path of the reference, in eager PyTorch:
+
+  * **Continuous batching** (scheduler.py): requests claim free batch
+    slots and drain mid-decode; finished or preempted slots refill
+    without flushing the batch.
+  * **Paged KV pool** (kv_cache.py) with int8 page quantization; every
+    prefill is a chunked span prefill (``prefill_chunk`` tokens per call,
+    the final partial chunk bucketed to a power of two) through the same
+    span datapath that verifies speculative drafts.
+  * **Prefix caching**: full prompt pages are content-addressed; an
+    admission that hits shares the cached pages (copy-on-write protected)
+    and prefills only the prompt suffix.
+  * **Self-speculative decoding** (``draft_k > 0``): an n-gram prompt-
+    lookup drafter proposes ``draft_k`` tokens from a device-resident
+    token history, one span decode scores them, and the longest prefix
+    matching the model's own greedy targets is accepted.
+  * **Device-resident decode**: a chunk is a Python loop of ``chunk``
+    decode steps that never reads the device from the host; draft,
+    verify, pick, EOS/budget masking, page writes and positions all stay
+    on the device. The host drains once per chunk (one ``.cpu()``), so
+    ``host_syncs == chunks``.
+
+Greedy decoding is the parity contract with the reference engine;
+``temperature > 0`` samples (Gumbel-max) from an explicit
+``torch.Generator``. The reference's mesh, disaggregation, fault and
+admission hooks and its dense (non-paged) families are not ported yet and
+raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.models import api
+from repro_torch.models.blocks import ModelContext
+from repro_torch.models.config import ModelConfig
+from repro_torch.obs.metrics import (CounterDict, MetricsRegistry,
+                                     QUEUE_WAIT_BUCKETS_STEPS)
+from repro_torch.obs.steptrace import StepTrace
+from repro_torch.obs.trace import SpanTracer
+from repro_torch.serve.kv_cache import PagedKVCache
+from repro_torch.serve.scheduler import ContinuousBatchingScheduler, Request
+
+Tensor = torch.Tensor
+PAD_TOKEN = -1  # emitted by finished slots inside a chunk
+
+
+@dataclasses.dataclass
+class ServeEngine:
+    """``window``: max total tokens per request (prompt + generated).
+
+    ``draft_k``: speculative draft length per decode step (0 disables).
+    ``prefix_cache``: share prompt-prefix pages across requests (None ->
+    on). ``prefill_chunk``: span size for chunked prefill (clamped to the
+    window). The device is ``ctx.device``."""
+
+    cfg: ModelConfig
+    ctx: ModelContext
+    window: int
+    max_batch: int = 4
+    chunk: int = 8
+    page_size: int = 8
+    num_pages: Optional[int] = None
+    paged: Optional[bool] = None  # None -> paged (the only ported backend)
+    eos_id: Optional[int] = None
+    temperature: float = 0.0
+    draft_k: int = 0
+    prefix_cache: Optional[bool] = None
+    prefill_chunk: int = 128
+    # reference features not ported yet: setting any of them raises
+    mesh: Any = None
+    disaggregate: bool = False
+    faults: Any = None
+    admission: Any = None
+    metrics: Any = None  # obs.MetricsRegistry (None -> fresh enabled one)
+    tracer: Any = None  # obs.SpanTracer (None -> disabled)
+
+    def __post_init__(self) -> None:
+        cfg = self.cfg
+        for name in ("mesh", "faults", "admission"):
+            if getattr(self, name) is not None:
+                raise NotImplementedError(
+                    f"ServeEngine({name}=...) is not ported yet")
+        if self.disaggregate:
+            raise NotImplementedError(
+                "prefill/decode disaggregation is not ported yet")
+        if self.paged is None:
+            self.paged = api.supports_paged_decode(cfg)
+        if not self.paged or not api.supports_paged_decode(cfg):
+            raise NotImplementedError(
+                f"{cfg.name}: only the paged backend of pure-attention "
+                f"decoders is ported (dense caches are not yet)")
+        if self.draft_k < 0:
+            raise ValueError("draft_k must be >= 0")
+        if self.prefix_cache is None:
+            self.prefix_cache = True
+        self.device = self.ctx.device
+        if self.metrics is None:
+            self.metrics = MetricsRegistry()
+        if self.tracer is None:
+            self.tracer = SpanTracer(enabled=False)
+        self.steptrace = StepTrace(
+            source="serve", meta={"arch": cfg.name,
+                                  "device": str(self.device)})
+        self.counters = CounterDict(
+            self.metrics,
+            ("prefills", "chunks", "decode_steps", "host_syncs",
+             "pages_trimmed", "suffix_prefills", "prompt_tokens",
+             "cached_prompt_tokens", "spec_steps", "spec_tokens",
+             "prefill_span_calls", "span_prefill_compiles"),
+            prefix="serve_")
+        m = self.metrics
+        self._m = {
+            "ttft": m.histogram("serve_ttft_s"),
+            "tpot": m.histogram("serve_tpot_s"),
+            "e2e": m.histogram("serve_e2e_s"),
+            "queue_wait": m.histogram("serve_queue_wait_steps",
+                                      edges=QUEUE_WAIT_BUCKETS_STEPS),
+            "prefill_hist": m.histogram("serve_prefill_s"),
+            "chunk_hist": m.histogram("serve_chunk_s"),
+            "prefill_time": m.counter("serve_prefill_time_s"),
+            "decode_time": m.counter("serve_decode_time_s"),
+            "prefill_tokens": m.counter("serve_prefill_tokens"),
+            "decode_tokens": m.counter("serve_decode_tokens"),
+            "generated_tokens": m.counter("serve_generated_tokens"),
+            "admitted": m.counter("serve_requests_admitted"),
+            "finished": m.counter("serve_requests_finished"),
+            "preempted": m.counter("serve_requests_preempted"),
+        }
+        self._trace_pid = self.tracer.process("serve")
+        self._device_tid = self.tracer.thread(
+            self._trace_pid, self.max_batch, "device")
+        self._req_obs: Dict[int, Dict[str, float]] = {}
+        # +1 page of table headroom: a finished slot's frozen pos can sit
+        # exactly at `window`, and speculative spans write up to draft_k
+        # positions past the frontier; those must resolve to trash.
+        self.pages_per_seq = (
+            -(-(self.window + self.draft_k) // self.page_size) + 1)
+        if self.num_pages is None:
+            self.num_pages = 1 + self.max_batch * self.pages_per_seq
+        self.kv = PagedKVCache(cfg, self.ctx, self.num_pages,
+                               self.page_size, self.max_batch,
+                               self.pages_per_seq)
+        self.span_len = max(1, min(self.prefill_chunk, self.window))
+        # span shapes run so far: the reference compiles one program per
+        # shape, so their count is its span_prefill_compiles metric
+        self._span_shapes: set = set()
+        self._use_spec = False  # per run: draft_k > 0 and greedy
+        self._gen: Optional[torch.Generator] = None
+        self._reset_carry()
+
+    # ------------------------------------------------------------ picks
+
+    def _pick(self, logits: Tensor, temp: float) -> Tensor:
+        """logits (B,1,V) -> (B,1) int32 next tokens: greedy argmax, or
+        a Gumbel-max sample from the run's generator when temp > 0."""
+        last = logits[:, -1, :].float()
+        if temp > 0.0:
+            u = torch.rand(last.shape, generator=self._gen,
+                           device=last.device).clamp_(min=1e-20)
+            last = last / max(temp, 1e-6) - torch.log(-torch.log(u))
+        return torch.argmax(last, dim=-1)[:, None].to(torch.int32)
+
+    def _draft_tokens(self, hist: Tensor, pos: Tensor, tok: Tensor
+                      ) -> Tensor:
+        """n-gram prompt-lookup drafter, fully on the device.
+
+        hist: (B, W) token at each absolute position (< pos valid); tok:
+        (B, 1) the current input token (position ``pos``). Finds the
+        latest earlier occurrence of the tip bigram (hist[pos-1], tok)
+        and proposes the ``draft_k`` tokens that followed it; misses are
+        -1, which never match a greedy target."""
+        b, w = hist.shape
+        dk = self.draft_k
+        dev = hist.device
+        bidx = torch.arange(b, device=dev)
+        idx = torch.arange(w, device=dev)[None, :]
+        pcol = pos[:, None].long()
+        prev = torch.nn.functional.pad(hist, (1, 0))[:, :w]
+        last = hist[bidx, torch.clamp(pos.long() - 1, 0, w - 1)]
+        m = (hist == tok) & (prev == last[:, None])
+        m &= (idx >= 1) & (idx < pcol)
+        # prefer the latest match whose dk-token continuation lies fully
+        # inside known history; closer matches propose unwritten tokens
+        j_full = torch.where(m & (idx + dk <= pcol - 1), idx, -1).amax(1)
+        j_part = torch.where(m & (idx <= pcol - 2), idx, -1).amax(1)
+        j = torch.where(j_full >= 0, j_full, j_part)
+        ahead = j[:, None] + 1 + torch.arange(dk, device=dev)[None, :]
+        drafts = hist[bidx[:, None], torch.clamp(ahead, 0, w - 1)]
+        known = (ahead < pcol) & (j[:, None] >= 0)
+        return torch.where(known, drafts, -1).to(torch.int32)
+
+    # ------------------------------------------------------- programs
+
+    @staticmethod
+    def _copy_page(pages: Dict[str, Dict[str, Tensor]], src: int,
+                   dst: int) -> Dict[str, Dict[str, Tensor]]:
+        """Copy-on-write page copy, every layer and leaf, in place."""
+        for sub in pages.values():
+            for arr in sub.values():
+                arr[:, dst] = arr[:, src]
+        return pages
+
+    def _prefill_span(self, params, span: Tensor, table: Tensor,
+                      pos0: Tensor, valid: Tensor, temp: float) -> Tensor:
+        """One span-prefill call: the span's k/v land in the pages and
+        only the last real token's logits are computed."""
+        shape = tuple(span.shape)
+        if shape not in self._span_shapes:
+            self._span_shapes.add(shape)
+            self.metrics.compile_event("serve_span_prefill")
+        state = {"pages": self.kv.pages, "page_table": table, "pos": pos0}
+        idx = torch.clamp(valid - 1, 0, span.shape[1] - 1)
+        logits, _ = api.decode_span_paged_fn(
+            params, span, state, self.cfg, self.ctx, valid=valid,
+            logits_at=idx)
+        return self._pick(logits, temp)
+
+    def _decode_step(self, params, table: Tensor, temp: float, carry):
+        tok, pos, done, n_out, max_new = carry
+        state = {"pages": self.kv.pages, "page_table": table, "pos": pos}
+        logits, _ = api.decode_paged_fn(params, tok, state, self.cfg,
+                                        self.ctx)
+        emitted = torch.where(done, PAD_TOKEN, tok[:, 0])
+        n_out = n_out + torch.where(done, 0, 1).to(n_out.dtype)
+        newly_done = ~done & (n_out >= max_new)
+        if self.eos_id is not None:
+            newly_done |= ~done & (tok[:, 0] == self.eos_id)
+        done = done | newly_done
+        # finished slots freeze: their (garbage) writes keep landing on
+        # the same slot or the trash page and their position stops
+        pos = torch.where(done, pos, pos + 1)
+        nxt = self._pick(logits, temp)
+        tok = torch.where(done[:, None], tok, nxt)
+        return (tok, pos, done, n_out, max_new), emitted
+
+    def _run_chunk(self, params, table: Tensor, temp: float) -> Tensor:
+        """``chunk`` decode steps with no host read; returns the emitted
+        tokens (B, chunk) on the device."""
+        carry = (self._tok, self._pos, self._done, self._n_out,
+                 self._max_new)
+        toks = []
+        for _ in range(self.chunk):
+            carry, emitted = self._decode_step(params, table, temp, carry)
+            toks.append(emitted)
+        self._tok, self._pos, self._done, self._n_out, _ = carry
+        return torch.stack(toks, dim=1)
+
+    def _spec_step(self, params, table: Tensor, temp: float, carry):
+        """Draft -> one span decode scoring (1 + draft_k) tokens ->
+        accept the longest prefix matching the model's greedy targets ->
+        emit 1..1+draft_k tokens. Rollback of the rejected tail is the
+        position bookkeeping alone: pages are append-only."""
+        tok, pos, done, n_out, max_new, hist = carry
+        dk = self.draft_k
+        b = tok.shape[0]
+        dev = tok.device
+        bidx = torch.arange(b, device=dev)
+        w = hist.shape[1]
+        drafts = self._draft_tokens(hist, pos, tok)  # (B, dk)
+        span = torch.cat([tok, drafts], dim=1)  # (B, 1+dk)
+        state = {"pages": self.kv.pages, "page_table": table, "pos": pos}
+        logits, _ = api.decode_span_paged_fn(params, span, state, self.cfg,
+                                             self.ctx)
+        greedy = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+        # greedy[:, t] is the model's target for position pos + t + 1;
+        # sampled runs would change the distribution, so drafts void
+        match = (drafts == greedy[:, :dk]) & (temp <= 0.0)
+        a = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+        t_idx = torch.arange(1 + dk, device=dev)
+        emit_ok = (t_idx[None, :] <= a[:, None]) & ~done[:, None]
+        emit_ok &= (n_out[:, None] + t_idx[None, :]) < max_new[:, None]
+        if self.eos_id is not None:
+            is_eos = span == self.eos_id
+            prior = torch.cumsum(is_eos.to(torch.int32), dim=1) - \
+                is_eos.to(torch.int32)
+            emit_ok &= prior == 0  # nothing emits past an EOS
+        emitted = torch.where(emit_ok, span, PAD_TOKEN)
+        n_emit = emit_ok.sum(dim=1).to(torch.int32)
+        n_out = n_out + n_emit
+        newly_done = ~done & (n_out >= max_new)
+        if self.eos_id is not None:
+            newly_done |= ~done & torch.any(emit_ok & is_eos, dim=1)
+        done = done | newly_done
+        # token history: write the emitted span at positions pos + t
+        wpos = torch.clamp(pos[:, None].long() + t_idx[None, :], 0, w - 1)
+        cur = hist[bidx[:, None], wpos]
+        hist[bidx[:, None], wpos] = torch.where(emit_ok, span, cur)
+        pos = pos + n_emit  # rollback == not advancing past acceptance
+        if temp > 0.0:
+            nxt = self._pick(logits[:, :1], temp)
+        else:
+            nxt = greedy[bidx, torch.clamp(a, 0, dk).long()][:, None]
+        tok = torch.where(done[:, None], tok, nxt)
+        return (tok, pos, done, n_out, max_new, hist), emitted
+
+    def _run_chunk_spec(self, params, table: Tensor, temp: float
+                        ) -> Tensor:
+        """``chunk`` speculative steps; returns emitted (B, chunk, 1+dk)."""
+        carry = (self._tok, self._pos, self._done, self._n_out,
+                 self._max_new, self._hist)
+        toks = []
+        for _ in range(self.chunk):
+            carry, emitted = self._spec_step(params, table, temp, carry)
+            toks.append(emitted)
+        (self._tok, self._pos, self._done, self._n_out, _,
+         self._hist) = carry
+        return torch.stack(toks, dim=1)
+
+    # --------------------------------------------------------- carry state
+
+    def _reset_carry(self) -> None:
+        b, dev, i32 = self.max_batch, self.device, torch.int32
+        self._tok = torch.zeros((b, 1), dtype=i32, device=dev)
+        self._pos = torch.zeros((b,), dtype=i32, device=dev)
+        self._done = torch.ones((b,), dtype=torch.bool, device=dev)
+        self._n_out = torch.zeros((b,), dtype=i32, device=dev)
+        self._max_new = torch.ones((b,), dtype=i32, device=dev)
+        if self.draft_k:
+            # draft_k + 1 columns of headroom keep every span write index
+            # in range and distinct
+            self._hist = torch.zeros((b, self.window + self.draft_k + 1),
+                                     dtype=i32, device=dev)
+
+    @staticmethod
+    def _pow2_bucket(t: int, cap: int) -> int:
+        """Length of a partial span: pow2 >= t (floor 4), capped at the
+        full span size."""
+        return min(cap, max(4, 1 << (t - 1).bit_length()))
+
+    def _span_prefill_paged(self, params, slot: int, tokens: np.ndarray,
+                            start: int, temp: float) -> Tensor:
+        """Prefill ``tokens`` at absolute positions ``start..`` in fixed-
+        size span chunks; cold prompts (start=0) and cached-prefix
+        suffixes (start=cached) share the path. Back padding inside a
+        partial chunk writes to the trash page."""
+        s_len = self.span_len
+        if not self.kv.ensure_private(slot, start, self._copy_page):
+            raise RuntimeError("page pool exhausted during CoW fork")
+        dev, i32 = self.device, torch.int32
+        table = self.kv.table_row(slot)
+        first = None
+        i = 0
+        while i < len(tokens):
+            t = min(s_len, len(tokens) - i)
+            b_len = self._pow2_bucket(t, s_len)
+            span = np.zeros((1, b_len), np.int32)
+            span[0, :t] = tokens[i:i + t]
+            first = self._prefill_span(
+                params, torch.from_numpy(span).to(dev), table,
+                torch.full((1,), start + i, dtype=i32, device=dev),
+                torch.full((1,), t, dtype=i32, device=dev), temp)
+            self.counters["prefill_span_calls"] += 1
+            i += t
+        return first
+
+    def _admit_into_slot(self, params, req: Request, slot: int,
+                         temp: float) -> None:
+        rp = req.resume_prompt()
+        s = len(rp)
+        self.counters["prefills"] += 1
+        cached = req.cached_prefix_len
+        # every prefill is a chunked span prefill; a prefix hit just
+        # starts past the adopted pages (suffix-only compute)
+        first = self._span_prefill_paged(params, slot, rp[cached:], cached,
+                                         temp)
+        if cached > 0:
+            self.counters["suffix_prefills"] += 1
+        if self.prefix_cache:
+            # publish the full prompt pages for later admissions (and
+            # this request's own resume after a preemption)
+            self.kv.register_prefix(slot, rp)
+        if self.draft_k and self._use_spec:
+            row = np.zeros(self.window + self.draft_k + 1, np.int32)
+            row[:s] = rp
+            self._hist[slot] = torch.from_numpy(row).to(self.device)
+        self._tok[slot] = first[0]
+        self._pos[slot] = s
+        self._done[slot] = False
+        self._n_out[slot] = len(req.generated)
+        self._max_new[slot] = req.max_new
+
+    # ---------------------------------------------------------------- run
+
+    def submit_check(self, req: Request) -> None:
+        total = len(req.prompt) + req.max_new
+        if total > self.window:
+            raise ValueError(
+                f"request {req.rid}: prompt+max_new={total} exceeds "
+                f"window={self.window}")
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Fraction of admitted prompt tokens served from cached pages."""
+        total = self.counters["prompt_tokens"]
+        return (self.counters["cached_prompt_tokens"] / total
+                if total else 0.0)
+
+    @property
+    def acceptance_length(self) -> float:
+        """Mean tokens emitted per speculative verify step (>= 1)."""
+        steps = self.counters["spec_steps"]
+        return (self.counters["spec_tokens"] / steps if steps else 1.0)
+
+    def slo_summary(self) -> Dict[str, float]:
+        """TTFT/TPOT percentiles, queue wait and the prefill/decode split
+        straight from the registry."""
+        m = self._m
+        pf_t = float(m["prefill_time"].value)
+        dc_t = float(m["decode_time"].value)
+        return {
+            "requests": float(m["finished"].value),
+            "ttft_p50_s": m["ttft"].quantile(0.5),
+            "ttft_p95_s": m["ttft"].quantile(0.95),
+            "tpot_p50_s": m["tpot"].quantile(0.5),
+            "tpot_p95_s": m["tpot"].quantile(0.95),
+            "queue_wait_p50_steps": m["queue_wait"].quantile(0.5),
+            "prefill_time_s": pf_t,
+            "decode_time_s": dc_t,
+            "prefill_tok_s": (float(m["prefill_tokens"].value) / pf_t
+                              if pf_t > 0 else 0.0),
+            "decode_tok_s": (float(m["decode_tokens"].value) / dc_t
+                             if dc_t > 0 else 0.0),
+        }
+
+    def _grow_or_preempt(self, sched: ContinuousBatchingScheduler,
+                         per_step: int) -> None:
+        """Page headroom for the next chunk of every running slot, oldest
+        first; on pressure preempt the youngest (its pages free up)."""
+        pid = self._trace_pid
+        order = sorted(sched.running,
+                       key=lambda s: (sched.running[s].arrival,
+                                      sched.running[s].rid))
+        for slot in order:
+            if slot not in sched.running:
+                continue  # already preempted this boundary
+            req = sched.running[slot]
+            # tokens cached after the next chunk (+1 boundary)
+            target = int(len(req.prompt) + len(req.generated)
+                         + self.chunk * per_step + 1)
+            while not self.kv.grow(slot, min(target, self.window)):
+                victim = sched.preempt_victim()
+                if victim is None:
+                    raise RuntimeError(
+                        "page pool too small for a single request")
+                vslot = victim.slot
+                sched.preempt(victim)
+                self.kv.release(vslot)
+                self._done[vslot] = True
+                self.tracer.end(pid=pid, tid=vslot)  # req span
+                self.tracer.instant("preempt", pid=pid, tid=vslot,
+                                    cat="serve", args={"rid": victim.rid})
+                self._m["preempted"].inc()
+                if vslot == slot:
+                    break  # we were the youngest: self-preempted
+
+    def _admit(self, params, sched: ContinuousBatchingScheduler,
+               clock: int, per_step: int, temp: float) -> None:
+        """Admit waiting requests into free slots (never preempting)."""
+        now, mtr, pid = self.tracer.clock, self._m, self._trace_pid
+        while True:
+            req = sched.next_admittable(clock)
+            slots = sched.free_slots()
+            if req is None or not slots:
+                break
+            slot = slots[0]
+            rp = req.resume_prompt()
+            cached, pids = ((0, []) if not self.prefix_cache
+                            else self.kv.lookup_prefix(rp))
+            if cached:
+                self.kv.adopt_prefix(slot, pids)
+            need = len(rp) + self.chunk * per_step + 1
+            if not self.kv.grow(slot, min(need, self.window)):
+                if self.prefix_cache:
+                    # undo adoption and its counters: the retry at the
+                    # next boundary repeats the lookup
+                    self.kv.abort_adoption(slot, cached, pids)
+                break  # no pages: wait for completions
+            req.cached_prefix_len = cached
+            self.counters["prompt_tokens"] += len(rp)
+            self.counters["cached_prompt_tokens"] += cached
+            wall = now()
+            o = self._req_obs.setdefault(req.rid, {})
+            o.setdefault("ready", wall)
+            resumed = "admit" in o  # re-admission after a preemption
+            o["admit"] = wall
+            mtr["admitted"].inc()
+            mtr["queue_wait"].observe(float(clock - req.arrival))
+            self.tracer.begin(
+                f"req:{req.rid}", pid=pid, tid=slot, cat="serve",
+                args={"rid": req.rid, "prompt": len(req.prompt),
+                      "resumed": resumed})
+            sched.admit(req, slot)
+            self._admit_into_slot(params, req, slot, temp)
+            dt = now() - wall
+            n_prefill = (len(req.prompt) + len(req.generated)
+                         - req.cached_prefix_len)
+            mtr["prefill_hist"].observe(dt)
+            mtr["prefill_time"].add(dt)
+            mtr["prefill_tokens"].add(n_prefill)
+            self.tracer.complete(
+                "prefill", dt, pid=pid, tid=slot, cat="serve",
+                args={"tokens": n_prefill, "cached": req.cached_prefix_len})
+            self.steptrace.record("prefill", dt, tokens=n_prefill,
+                                  cached=req.cached_prefix_len, batch=1)
+
+    def run(self, params, requests: Sequence[Request], *,
+            generator: Optional[torch.Generator] = None,
+            temperature: Optional[float] = None) -> Dict[int, np.ndarray]:
+        """Drain all requests; returns {rid: generated tokens}.
+        ``generator`` (on the engine's device) drives sampling when the
+        temperature is > 0; default: seeded with 0."""
+        sched = ContinuousBatchingScheduler(self.max_batch)
+        self.scheduler = sched
+        if generator is None:
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(0)
+        self._gen = generator
+        temp = float(self.temperature if temperature is None
+                     else temperature)
+        for req in requests:
+            self.submit_check(req)
+            sched.add(req)
+        # greedy-match acceptance is only sound for greedy decoding:
+        # sampled runs take the plain one-token chunk
+        self._use_spec = bool(self.draft_k) and temp <= 0.0
+        self._reset_carry()
+        now, mtr, pid = self.tracer.clock, self._m, self._trace_pid
+        self._req_obs = {}
+        run_t0 = now()
+        clock = 0
+        per_step = 1 + self.draft_k if self._use_spec else 1
+        while sched.has_work():
+            wall = now()
+            for r in sched.waiting:
+                if r.arrival <= clock:  # "ready": anchors queue wait
+                    self._req_obs.setdefault(r.rid, {}) \
+                        .setdefault("ready", wall)
+            self._grow_or_preempt(sched, per_step)
+            self._admit(params, sched, clock, per_step, temp)
+            if not sched.running:
+                if sched.next_admittable(clock) is not None:
+                    raise RuntimeError(
+                        "admission stalled with an empty batch: the page "
+                        "pool cannot hold one request (shrink window or "
+                        "grow num_pages)")
+                # idle: jump the clock to the next arrival
+                nxt = min(max(r.arrival, r.not_before)
+                          for r in sched.waiting)
+                clock = max(clock + self.chunk, nxt)
+                continue
+            # one device-resident chunk
+            sched.record_occupancy(len(sched.running))
+            chunk_t0 = now()
+            live = len(sched.running)
+            table = self.kv.table_device()
+            if self._use_spec:
+                toks = self._run_chunk_spec(params, table, temp)
+            else:
+                toks = self._run_chunk(params, table, temp)
+            clock += self.chunk
+            self.counters["chunks"] += 1
+            self.counters["decode_steps"] += self.chunk
+            # drain: the single host read per chunk
+            b = self.max_batch
+            flat = torch.cat([toks.reshape(-1).to(torch.int32),
+                              self._done.to(torch.int32),
+                              self._pos]).cpu().numpy()
+            self.counters["host_syncs"] += 1
+            toks_h = flat[:toks.numel()].reshape(toks.shape)
+            done_h = flat[toks.numel():toks.numel() + b].astype(bool)
+            pos_h = flat[toks.numel() + b:]
+            wall_drain = now()
+            chunk_dt = wall_drain - chunk_t0
+            emitted = 0
+            for slot in list(sched.running):
+                req = sched.running[slot]
+                if self._use_spec:
+                    # toks_h[slot]: (chunk, 1+draft_k); emitted tokens
+                    # form a prefix of each step row
+                    for step_row in toks_h[slot]:
+                        cnt = 0
+                        for t in step_row:
+                            if t != PAD_TOKEN:
+                                req.generated.append(int(t))
+                                cnt += 1
+                        if cnt:
+                            self.counters["spec_steps"] += 1
+                            self.counters["spec_tokens"] += cnt
+                            emitted += cnt
+                else:
+                    for t in toks_h[slot]:
+                        if t != PAD_TOKEN:
+                            req.generated.append(int(t))
+                            emitted += 1
+                o = self._req_obs.get(req.rid, {})
+                if req.generated and "first" not in o:
+                    o["first"] = wall_drain
+                    mtr["ttft"].observe(wall_drain - o.get("ready", run_t0))
+                if done_h[slot]:
+                    n = len(req.generated)
+                    if "first" in o and n > 1:
+                        mtr["tpot"].observe(
+                            (wall_drain - o["first"]) / (n - 1))
+                    mtr["e2e"].observe(wall_drain - o.get("ready", run_t0))
+                    mtr["finished"].inc()
+                    mtr["generated_tokens"].add(n)
+                    self.tracer.end(pid=pid, tid=slot)  # req span
+                    sched.complete(slot)
+                    if self.prefix_cache:
+                        # publish generated pages too: multi-turn prompts
+                        # extending this output will hit
+                        self.kv.register_prefix(
+                            slot, np.concatenate(
+                                [req.prompt,
+                                 np.asarray(req.generated, np.int32)]))
+                    self.kv.release(slot)
+                elif self.cfg.sliding_window is not None:
+                    # positions behind pos - window are masked out of
+                    # attention: release their pages back to the pool
+                    self.counters["pages_trimmed"] += self.kv.trim(
+                        slot, int(pos_h[slot]) - self.cfg.sliding_window)
+            mtr["decode_time"].add(chunk_dt)
+            mtr["chunk_hist"].observe(chunk_dt)
+            mtr["decode_tokens"].add(emitted)
+            self.steptrace.record(
+                "spec_decode" if self._use_spec else "decode", chunk_dt,
+                batch=live, steps=self.chunk, tokens=emitted,
+                queue_depth=len(sched.waiting))
+            self.tracer.complete(
+                "decode_chunk", chunk_dt, pid=pid, tid=self._device_tid,
+                cat="serve", args={"live": live, "tokens": emitted})
+        return {r.rid: np.asarray(r.generated, np.int32)
+                for r in sched.finished}
+
+    # ------------------------------------------------------- legacy API
+
+    def generate(self, params, batch: Dict[str, Any], *, max_new: int,
+                 temperature: float = 0.0,
+                 generator: Optional[torch.Generator] = None) -> Tensor:
+        """Single-batch generation served by the engine: one request per
+        row. Returns (B, max_new) int32 tokens on the CPU; rows that hit
+        EOS early are padded with the EOS id."""
+        extra = set(batch) - {"tokens"}
+        if extra:
+            raise NotImplementedError(
+                f"batch keys {sorted(extra)} are not ported yet")
+        tokens = np.asarray(batch["tokens"])
+        b = tokens.shape[0]
+        reqs = [Request(rid=i, prompt=tokens[i], max_new=max_new)
+                for i in range(b)]
+        out = self.run(params, reqs, generator=generator,
+                       temperature=temperature)
+        pad = self.eos_id if self.eos_id is not None else 0
+        rows: List[np.ndarray] = []
+        for i in range(b):
+            row = out[i]
+            if len(row) < max_new:
+                row = np.concatenate(
+                    [row, np.full(max_new - len(row), pad, np.int32)])
+            rows.append(row)
+        return torch.from_numpy(np.stack(rows))

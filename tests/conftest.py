@@ -31,3 +31,9 @@ def run_in_subprocess(code: str, devices: int = 8, timeout: int = 420) -> str:
 @pytest.fixture
 def subproc():
     return run_in_subprocess
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU with nvcc (hand-written CUDA "
+        "kernels have no CPU mode); skipped where torch sees no card")

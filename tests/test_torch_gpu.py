@@ -1,0 +1,146 @@
+"""On-card checks of the port's CUDA kernels (skipped without a GPU).
+
+Run on a machine with an H100:
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+Each kernel variant is held against its plain-torch version on the same
+card; f32 at 1e-4 (summation order differs from the gather oracle), bf16
+at 2e-2 (the plain version rounds the gathered view to bf16)."""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.registry import get_smoke
+from repro_torch.kernels import decode_attention as kern
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import api
+from repro_torch.models.blocks import ModelContext, paged_quantize
+from repro_torch.models.params import init_params
+from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.scheduler import Request
+
+pytestmark = pytest.mark.gpu
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(dev, *, b, t, h, kv, d, p, m, pages, dtype, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n = 1 + b * m
+    q = torch.randn((b, t, h, d), generator=g).to(dtype)
+    k = torch.randn((n, p, kv, d), generator=g)
+    v = torch.randn((n, p, kv, d), generator=g)
+    ks = vs = None
+    if pages == "int8":
+        k, ks = paged_quantize(k, torch.int8)
+        v, vs = paged_quantize(v, torch.int8)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    table = (1 + torch.randperm(n - 1, generator=g)[:b * m]).reshape(b, m)
+    table[0, -1] = 0  # a padded entry: the trash page
+    table = table.to(torch.int32)
+    pos = torch.randint(1, m * p - t + 1, (b,), generator=g,
+                        dtype=torch.int32)
+    to = lambda x: None if x is None else x.to(dev)
+    return [to(x) for x in (q, k, v, table, pos, ks, vs)]
+
+
+@pytest.mark.parametrize("pages", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("d,window", [(8, None), (64, None), (64, 5),
+                                      (128, 33), (256, None)])
+@pytest.mark.parametrize("t", [1, 5, 128])
+def test_kernel_matches_plain(cuda, pages, d, window, t):
+    dtype = torch.float32 if pages == "f32" else torch.bfloat16
+    q, k, v, table, pos, ks, vs = _inputs(
+        cuda, b=3, t=t, h=14, kv=2, d=d, p=16, m=12, pages=pages,
+        dtype=dtype)
+    if t == 1:
+        before = kern.launches["paged_decode_attention"]
+        got = kern.paged_decode_attention(q[:, 0], k, v, table, pos,
+                                          k_scale=ks, v_scale=vs,
+                                          window=window)
+        want = kern.paged_decode_attention_plain(
+            q[:, 0], k, v, table, pos, k_scale=ks, v_scale=vs,
+            window=window)
+        assert kern.launches["paged_decode_attention"] == before + 1
+    else:
+        before = kern.launches["paged_decode_span_attention"]
+        got = kern.paged_decode_span_attention(q, k, v, table, pos,
+                                               k_scale=ks, v_scale=vs,
+                                               window=window)
+        want = kern.paged_decode_span_attention_plain(
+            q, k, v, table, pos, k_scale=ks, v_scale=vs, window=window)
+        assert kern.launches["paged_decode_span_attention"] == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == want.shape
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+def test_row_without_valid_key_is_uniform_mean(cuda):
+    """pos = 0 leaves a decode row no valid key: like the reference, the
+    kernel returns the mean over every slot of the table row."""
+    q, k, v, table, pos, _, _ = _inputs(
+        cuda, b=2, t=1, h=6, kv=2, d=8, p=8, m=4, pages="f32",
+        dtype=torch.float32)
+    pos = torch.tensor([0, 5], dtype=torch.int32, device=cuda)
+    got = kern.paged_decode_attention(q[:, 0], k, v, table, pos)
+    want = kern.paged_decode_attention_plain(q[:, 0], k, v, table, pos)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    mean = v[table[0].long()].reshape(-1, 2, 8).mean(0)  # (KV, D)
+    torch.testing.assert_close(got[0], mean.repeat_interleave(3, 0),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_wrapper_rejects_bad_inputs(cuda):
+    q, k, v, table, pos, _, _ = _inputs(
+        cuda, b=2, t=1, h=6, kv=2, d=8, p=8, m=4, pages="f32",
+        dtype=torch.float32)
+    with pytest.raises(ValueError):
+        kern.paged_decode_attention(q[:, 0], k, v, table.long(), pos)
+    with pytest.raises(ValueError):
+        kern.paged_decode_attention(q[:, 0], k.transpose(1, 2), v, table,
+                                    pos)
+
+
+@pytest.mark.parametrize("cache", [None, torch.int8])
+@pytest.mark.parametrize("draft_k", [0, 2])
+def test_engine_cuda_matches_ref(cuda, cache, draft_k):
+    """Greedy tokens through the kernels equal the gather path's (f32)."""
+    cfg = get_smoke("qwen2_0_5b")
+    params = init_params(api.model_specs(cfg), seed=0, device=cuda)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(8, 15)))
+               for _ in range(5)]
+    outs = []
+    for impl in ("cuda", "ref"):
+        ctx = ModelContext(compute_dtype=torch.float32, attn_impl=impl,
+                           decode_cache_dtype=cache, device=cuda)
+        eng = ServeEngine(cfg, ctx, window=64, max_batch=3, chunk=4,
+                          page_size=8, num_pages=12, draft_k=draft_k)
+        kern.reset_launches()
+        outs.append(eng.run(params, [Request(rid=i, prompt=p, max_new=14)
+                                     for i, p in enumerate(prompts)]))
+        launched = sum(kern.launches.values())
+        assert (launched > 0) == (impl == "cuda")
+    for i in range(len(prompts)):
+        np.testing.assert_array_equal(outs[0][i], outs[1][i])
+
+
+def test_launcher_profile_reads_device_time(cuda, capsys):
+    launch_serve.main(["--arch", "qwen2_0_5b", "--smoke", "--trace", "3",
+                       "--dtype", "bfloat16", "--profile"])
+    out = capsys.readouterr().out
+    line = [ln for ln in out.splitlines() if ln.startswith("profile:")][0]
+    events = int(line.split(",")[-1].split()[0])
+    assert events > 0, line

@@ -1,0 +1,79 @@
+"""The port stands alone: no file under src/repro_torch imports JAX or the
+JAX package, every module imports with both blocked, and its entry points
+refuse to fall back to the CPU silently."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs.registry import get_smoke
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import api
+from repro_torch.models.blocks import ModelContext
+from repro_torch.models.params import init_params
+from repro_torch.serve.engine import ServeEngine
+
+SRC = Path(__file__).resolve().parent.parent / "src"
+PKG = SRC / "repro_torch"
+FORBIDDEN = re.compile(
+    r"^\s*(import jax|from jax|import repro\.|from repro\.|import repro$"
+    r"|from repro import)", re.M)
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(SRC).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_no_file_imports_jax_or_the_reference():
+    bad = [str(p.relative_to(SRC)) for p in PKG.rglob("*.py")
+           if FORBIDDEN.search(p.read_text())]
+    assert not bad, bad
+
+
+def test_every_module_imports_with_jax_and_repro_blocked():
+    mods = list(_modules())
+    assert "repro_torch.serve.engine" in mods
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "import importlib\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_entry_points_need_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    cfg = get_smoke("qwen2_0_5b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(api.model_specs(cfg))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(cfg, ModelContext(), window=32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_serve.main(["--arch", "qwen2_0_5b", "--smoke"])
+    with pytest.raises(ValueError, match="CUDA device"):
+        ModelContext(attn_impl="cuda", device="cpu")
+    ctx = ModelContext(device="cpu")
+    assert ctx.attn_impl == "ref" and ctx.device.type == "cpu"
+
+
+def test_launcher_serves_a_trace_on_the_cpu(capsys):
+    launch_serve.main(["--arch", "qwen2_0_5b", "--smoke", "--trace", "4",
+                       "--device", "cpu", "--draft-k", "2", "--kv-int8"])
+    out = capsys.readouterr().out
+    assert "4 requests" in out and "host_syncs=" in out
+    assert "prefix_hit_rate=" in out
