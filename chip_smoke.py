@@ -8,25 +8,44 @@ result line):
 
   1. device  - needs CUDA; prints the card's name and power limit;
   2. build   - compiles every CUDA source of the port with nvcc, in parallel;
-  3. kernels - each kernel x {f32, bf16, int8} pages against its plain
-               torch version on the card at the shapes of the serving path
-               (H=14, KV=2, D=64, P=16, B=8, contexts up to 2048, spans of
-               3 and 128 tokens, and a D=128 windowed case), with its time,
-               the plain version's, SDPA's on the gathered view (a
-               yardstick the port never calls) and the least time the card
-               could take;
-  4. serve   - full-width qwen2-0.5B from seeded random weights through
-               ServeEngine.run: bf16 pages, then draft_k=2, then an int8
-               pool, each with its launch counters read just before and
-               after; then a short f32 run (TF32 off) whose greedy tokens
-               through the kernels must equal the gather path's.
+  3. kernels - each kernel variant against its plain torch version on the
+               card at the shapes of the serving paths, with its time, the
+               plain version's, one library call's (a yardstick the port
+               never calls) and the least time the card could take:
+               the paged-attention kernels x {f32, bf16, int8} pages at
+               qwen's shapes (H=14, KV=2, D=64, P=16, B=8, contexts up to
+               2048, spans of 3 and 128 tokens, and a D=128 windowed case)
+               and at Mixtral's (H=48, KV=8, D=128, B=4, a 4096-token
+               window, contexts up to 4608, the pages behind the window
+               trimmed from the table as the engine does); the grouped MoE
+               GEMM x {f32, bf16, int8 weights} at Mixtral's widths
+               (D=6144, F=16384, 8 experts, top-2) for a decode step of 4
+               tokens and a 128-token prefill chunk, up and down, plus a
+               ragged smoke shape and an all -1 plan;
+  4. qwen    - full-width qwen2-0.5B from seeded random weights through
+               ServeEngine.run: bf16 pages, draft_k=2, an int8 pool; then a
+               short f32 run (TF32 off) whose greedy tokens through the
+               kernels must equal the gather path's;
+  5. mixtral - full-width Mixtral-8x22B cut to 4 of its 56 layers (the
+               only reduction: 56 layers of bf16 weights need ~281 GB),
+               bf16, through ServeEngine.run: 8 requests plus one whose
+               4500-token prompt passes the 4096-token window (pages are
+               trimmed), bf16 pages, draft_k=2, an int8 pool, then the bf16
+               run again under torch.profiler; one layer's experts in int8
+               (quantize_moe_params) through moe_ffn, kernel against plain,
+               with any host sync an error; then 2 layers in f32 (TF32 off)
+               whose greedy tokens through the kernels must equal the plain
+               path's, one prompt of 4500 tokens trimming pages.
 
+Each serve run sets every launch counter to 0 just before it and reads
+them just after; a kernel of that path launched no time fails the run.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -43,8 +62,17 @@ KERNELS = {
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:330",
     "paged_decode_span_attention":
         "src/repro/kernels/decode_attention.py:276",
+    "grouped_matmul": "src/repro/kernels/moe_gemm.py:55",
 }
-SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
+SOURCES = {
+    "paged_decode_attention":
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "paged_decode_span_attention":
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "grouped_matmul": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
+}
+EPS32 = 1.1920929e-07
+MIXTRAL_LAYERS = 4  # of 56: the bf16 weights of 4 layers fill ~21 GB
 
 
 def log(msg: str) -> None:
@@ -76,8 +104,11 @@ def timed_ms(fn, flush, iters: int = 20, warmup: int = 3) -> float:
 
 def kernel_case(kern, name: str, pages: str, *, t: int, d: int = 64,
                 window=None, b: int = 8, h: int = 14, kv: int = 2,
-                p: int = 16, max_ctx: int = 2048, seed: int = 0):
-    """One kernel variant at serving shapes: returns its report dict."""
+                p: int = 16, max_ctx: int = 2048, ctxs=None, seed: int = 0):
+    """One kernel variant at serving shapes: returns its report dict.
+    Row contexts are ``ctxs``, else spread from max_ctx/8 to max_ctx.
+    With a window, table entries of pages wholly behind the first query's
+    window are 0 (the null page), as the engine's trimming leaves them."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -87,9 +118,14 @@ def kernel_case(kern, name: str, pages: str, *, t: int, d: int = 64,
     dtype = torch.float32 if pages == "f32" else torch.bfloat16
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
+    if ctxs is None:
+        ctx = torch.linspace(max_ctx // 8, max_ctx, b,
+                             device=dev).round().int()
+    else:
+        ctx = torch.tensor(ctxs, dtype=torch.int32, device=dev)
+        b, max_ctx = len(ctxs), max(ctxs)
     m = max_ctx // p + 1
     n = 1 + b * m
-    ctx = torch.linspace(max_ctx // 8, max_ctx, b, device=dev).round().int()
     pos = ctx if name == "paged_decode_attention" else ctx - t
     q = torch.randn((b, t, h, d), generator=g, device=dev).to(dtype)
     kf = torch.randn((n, p, kv, d), generator=g, device=dev)
@@ -103,8 +139,15 @@ def kernel_case(kern, name: str, pages: str, *, t: int, d: int = 64,
     table = 1 + torch.randperm(n - 1, generator=g, device=dev)[:b * m]
     table = table.reshape(b, m).int()
     used = (ctx + p - 1) // p  # pages holding the row's context
-    table[torch.arange(m, device=dev)[None, :] >= used[:, None]] = 0
+    col = torch.arange(m, device=dev)[None, :]
+    table[col >= used[:, None]] = 0
     pos = pos.int().contiguous()
+    first_q = pos.long() - (1 if name == "paged_decode_attention" else 0)
+    trimmed = 0
+    if window is not None:  # pages wholly behind every query's window
+        keep = (first_q - window + 1).clamp(min=0) // p
+        table[col < keep[:, None]] = 0
+        trimmed = int(keep.sum())
     if name == "paged_decode_attention":
         qk = q[:, 0]
         run = lambda: kern.paged_decode_attention(
@@ -122,8 +165,9 @@ def kernel_case(kern, name: str, pages: str, *, t: int, d: int = 64,
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     if not bool(torch.isfinite(got.float()).all()) or err > TOL[pages]:
-        raise AssertionError(f"{name} {pages} t={t} d={d} window={window}:"
-                             f" max_abs_err {err} > {TOL[pages]}")
+        raise AssertionError(f"{name} {pages} t={t} h={h} d={d} "
+                             f"window={window}: max_abs_err {err} > "
+                             f"{TOL[pages]}")
 
     # SDPA on the gathered view: the library's time for the same function
     kg = ref.paged_gather_dequant_ref(k, table, ks, dtype)
@@ -159,20 +203,126 @@ def kernel_case(kern, name: str, pages: str, *, t: int, d: int = 64,
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[str(dtype).split(".")[-1]]
     return {
-        "name": name, "pages": pages, "t": t, "d": d, "window": window,
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "name": name, "pages": pages, "t": t, "b": b, "h": h, "kv": kv,
+        "d": d, "window": window, "max_ctx": max_ctx,
+        "trimmed_pages": trimmed, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "flops": flops,
+    }
+
+
+def gemm_case(name: str, xdt: str, wdt: str, *, t: int, d: int, f: int,
+              e: int = 8, k: int = 2, bm: int = 8, all_pad: bool = False,
+              seed: int = 0):
+    """The grouped MoE GEMM at one shape of the serving path: t tokens
+    routed top-k over e experts, sorted and padded by the real dispatch
+    plan, times (e, d, f) weights. Returns its report dict."""
+    import torch
+    from repro_torch.kernels import moe_gemm, ref
+    from repro_torch.models.moe import (grouped_dispatch_plan,
+                                        grouped_permute)
+
+    dev = torch.device("cuda")
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[xdt]
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    scores = torch.rand((t, e), generator=g, device=dev)
+    gate_idx = torch.argsort(scores, dim=1)[:, :k].to(torch.int32)
+    plan = grouped_dispatch_plan(gate_idx, n_experts=e, block_m=bm)
+    x = grouped_permute(torch.randn((t, d), generator=g, device=dev), plan,
+                        dtype)
+    gids = plan.block_experts
+    if all_pad:
+        gids = torch.full_like(gids, -1)
+    scale = None
+    if wdt == "int8":
+        w = torch.randint(-127, 128, (e, d, f), generator=g, device=dev,
+                          dtype=torch.int8)
+        scale = torch.rand((e,), generator=g, device=dev) * 1e-3 + 1e-4
+    else:
+        w = (torch.randn((e, d, f), generator=g, device=dev)
+             * d ** -0.5).to(dtype)
+    run = lambda: moe_gemm.grouped_matmul(x, w, gids, w_scale=scale)
+    plain = lambda: ref.grouped_matmul_ref(x, w, gids, w_scale=scale)
+    before = moe_gemm.launches["grouped_matmul"]
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    if moe_gemm.launches["grouped_matmul"] != before + 1:
+        raise AssertionError(f"{name}: the wrapper did not count its launch")
+    err = float((got.float() - want.float()).abs().max())
+    big = float(want.float().abs().max())
+    # f32: summation order over d terms, which grows as sqrt(d) (the limit
+    # is 6-12x the error measured at d=64..16384; a product from inputs
+    # rounded to TF32 or bf16 is 15x and more past it); bf16 out: one
+    # bf16 step
+    tol = (3 * d ** 0.5 * EPS32 * big if xdt == "f32"
+           else 2 ** -7 * big) + 1e-6
+    if not bool(torch.isfinite(got.float()).all()) or err > tol:
+        raise AssertionError(f"{name} x={xdt} w={wdt} t={t} d={d} f={f}: "
+                             f"max_abs_err {err} > {tol}")
+    if all_pad and big != 0.0:
+        raise AssertionError(f"{name}: all -1 plan gave nonzero rows")
+
+    # torch._grouped_mm on the same sorted rows (bf16 only): the library's
+    # time for the same product; the port never calls it
+    library = None
+    if xdt == "bf16" and wdt == "bf16" and not all_pad:
+        ends = torch.cumsum(-(-plan.counts // bm) * bm, 0).to(torch.int32)
+        library = lambda: torch._grouped_mm(x, w, offs=ends)
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    ms = timed_ms(run, flush)
+    plain_ms = timed_ms(plain, flush)
+    library_ms = timed_ms(library, flush) if library else None
+
+    # least time: the rows of live tiles read once, the weights of every
+    # expert they route to read once, the output written once
+    live = gids >= 0
+    rows = int(live.sum()) * bm
+    experts = torch.unique(gids[live]).numel()
+    w_bytes = experts * d * f * w.element_size()
+    nbytes = (rows * d * x.element_size() + w_bytes
+              + x.shape[0] * f * x.element_size() + gids.numel() * 4
+              + (0 if scale is None else e * 4))
+    flops = 2.0 * rows * d * f
+    peak = PEAK_FLOPS["float32" if xdt == "f32" else "bfloat16"]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    # what this design reads: an expert's weights once per segment of up
+    # to MT rows (64 for bf16 rows, 32 for f32)
+    mt = 32 if xdt == "f32" else 64
+    seg = 0
+    ids = gids.tolist()
+    i = 0
+    while i < len(ids):
+        j = i
+        while j < len(ids) and ids[j] == ids[i]:
+            j += 1
+        if ids[i] >= 0:
+            per = max(1, mt // bm)
+            seg += -(-(j - i) // per) * max(1, -(-bm // mt))
+        i = j
+    return {
+        "name": name, "x": xdt, "w": wdt, "t": t, "d": d, "f": f,
+        "m": int(x.shape[0]), "experts": experts, "max_abs_err": err,
+        "max_abs_out": big, "tol": tol,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "flops": flops,
+        "design_weight_bytes": seg * d * f * w.element_size(),
     }
 
 
 # ------------------------------------------------------------------- serve
 
 
-def serve_requests(vocab: int, seed: int, n: int = 8):
-    """8 prompts of 100-600 tokens; the first half share a 256-token
-    prefix (a system prompt), so the prefix cache has work."""
+def serve_requests(vocab: int, seed: int, n: int = 8, max_new: int = 32,
+                   long_prompt: int = 0):
+    """n prompts of 100-600 tokens; the first half share a 256-token
+    prefix (a system prompt), so the prefix cache has work. With
+    ``long_prompt``, one more request of that many prompt tokens and
+    2 * max_new new ones."""
     import numpy as np
     from repro_torch.serve.scheduler import Request
     rng = np.random.default_rng(seed)
@@ -184,19 +334,36 @@ def serve_requests(vocab: int, seed: int, n: int = 8):
             prompt = np.concatenate([shared, tail])
         else:
             prompt = rng.integers(0, vocab, int(rng.integers(100, 601)))
-        reqs.append(Request(rid=rid, prompt=prompt, max_new=32))
+        reqs.append(Request(rid=rid, prompt=prompt, max_new=max_new))
+    if long_prompt:
+        reqs.append(Request(rid=n, prompt=rng.integers(0, vocab, long_prompt),
+                            max_new=2 * max_new))
     return reqs
 
 
-def serve_run(label, kern, engine, params, reqs, vocab, need):
-    """One run of the main path with the launch counters read around it."""
+def reset_counts(mods) -> None:
+    for mod in mods:
+        mod.reset_launches()
+
+
+def read_counts(mods):
+    counts = {}
+    for mod in mods:
+        counts.update(mod.launches)
+    return counts
+
+
+def serve_run(label, mods, engine, params, reqs, vocab, need):
+    """One run of a serving path with every launch counter set to 0 just
+    before it and read just after."""
     import torch
-    kern.reset_launches()
+    from repro_torch.launch.serve import slo_line
+    reset_counts(mods)
     t0 = time.perf_counter()
     out = engine.run(params, reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(kern.launches)
+    counts = read_counts(mods)
     toks = sum(len(v) for v in out.values())
     for r in reqs:
         got = out[r.rid]
@@ -209,10 +376,200 @@ def serve_run(label, kern, engine, params, reqs, vocab, need):
         f"{wall:.3f}s {toks / wall:.1f} tok/s "
         f"host_syncs={engine.counters['host_syncs']} "
         f"chunks={engine.counters['chunks']} "
+        f"pages_trimmed={engine.counters['pages_trimmed']} "
         f"prefix_hit_rate={engine.prefix_hit_rate:.3f} "
         f"acceptance_length={engine.acceptance_length:.2f} "
         f"launches={counts}")
-    return out, counts
+    log(f"  {slo_line(engine)}")
+    return out, counts, wall
+
+
+def f32_equality(label, mods, cfg, params, reqs, need, trim=False):
+    """Greedy tokens through the kernels equal the plain path's (f32,
+    TF32 off). With ``trim``, both runs must have trimmed pages."""
+    import torch
+    from repro_torch.models.blocks import ModelContext
+    from repro_torch.serve.engine import ServeEngine
+    window = max(len(r.prompt) + r.max_new for r in reqs)
+    window = -(-window // 16) * 16
+    outs = {}
+    for impl in ("cuda", "ref"):
+        ctx = ModelContext(compute_dtype=torch.float32, attn_impl=impl,
+                           device="cuda")
+        engine = ServeEngine(cfg, ctx, window=window, max_batch=4, chunk=8,
+                             page_size=16)
+        outs[impl], counts, _ = serve_run(
+            f"{label}_f32_{impl}", mods, engine, params,
+            [type(r)(rid=r.rid, prompt=r.prompt, max_new=r.max_new)
+             for r in reqs], cfg.vocab_size, need if impl == "cuda" else ())
+        if impl == "ref" and any(counts.values()):
+            raise AssertionError(f"{label}: the plain path launched {counts}")
+        if trim and engine.counters["pages_trimmed"] == 0:
+            raise AssertionError(f"{label} {impl}: the window trimmed no "
+                                 f"page")
+    for rid in outs["cuda"]:
+        if not (outs["cuda"][rid] == outs["ref"][rid]).all():
+            raise AssertionError(f"{label} f32 request {rid}: cuda tokens "
+                                 f"{outs['cuda'][rid]} != ref "
+                                 f"{outs['ref'][rid]}")
+    log(f"serve[{label}_f32]: greedy tokens through the kernels equal the "
+        f"plain path's")
+
+
+def serve_qwen(mods):
+    """Slice 1's path: full-width qwen2-0.5B through the paged kernels.
+    Returns the launch counts of its bf16 run."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import api
+    from repro_torch.models.blocks import ModelContext
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_arch("qwen2_0_5b")
+    params = init_params(api.model_specs(cfg), seed=0,
+                         dtype=torch.bfloat16, device="cuda")
+    paged = ("paged_decode_attention", "paged_decode_span_attention")
+    counts = None
+    for label, cache, draft_k, need in (
+            ("qwen_bf16", None, 0, paged),
+            # greedy speculation verifies every step through the span
+            # kernel; the one-token decode kernel is not on that path
+            ("qwen_bf16_draft_k2", None, 2, paged[1:]),
+            ("qwen_int8", torch.int8, 0, paged)):
+        ctx = ModelContext(compute_dtype=torch.bfloat16,
+                           decode_cache_dtype=cache, device="cuda")
+        engine = ServeEngine(cfg, ctx, window=640, max_batch=4, chunk=8,
+                             page_size=16, draft_k=draft_k)
+        _, c, _ = serve_run(label, mods, engine, params,
+                            serve_requests(cfg.vocab_size, seed=0),
+                            cfg.vocab_size, need)
+        counts = counts or c
+    del params
+    torch.cuda.empty_cache()
+
+    params = init_params(api.model_specs(cfg), seed=1, device="cuda")
+    short = serve_requests(cfg.vocab_size, seed=1, n=4, max_new=16)
+    for r in short:
+        r.prompt = r.prompt[:160]
+    f32_equality("qwen", mods, cfg, params, short, paged)
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def serve_mixtral(mods):
+    """This slice's path: Mixtral-8x22B at full width and cut depth
+    through the paged and grouped-GEMM kernels. Returns the launch counts
+    of its bf16 run."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import print_profile
+    from repro_torch.models import api
+    from repro_torch.models.blocks import ModelContext
+    from repro_torch.models.moe import moe_ffn, quantize_moe_params
+    from repro_torch.models.params import init_params, tree_index
+    from repro_torch.serve.engine import ServeEngine
+
+    device = "cuda"
+    full = get_arch("mixtral_8x22b")
+    cfg = dataclasses.replace(full, n_layers=MIXTRAL_LAYERS)
+    log(f"mixtral: {cfg.n_layers} of {full.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x "
+        f"{cfg.resolved_head_dim}, {cfg.n_experts} experts top-"
+        f"{cfg.experts_per_token} x d_ff {cfg.d_ff}, window "
+        f"{cfg.sliding_window}")
+    t0 = time.perf_counter()
+    params = init_params(api.model_specs(cfg), seed=0, dtype=torch.bfloat16,
+                         device=device)
+    torch.cuda.synchronize()
+    gb = sum(p.numel() * p.element_size() for p in _leaves(params)) / 1e9
+    log(f"mixtral: {gb:.2f} GB of bf16 weights made in "
+        f"{time.perf_counter() - t0:.1f}s")
+    # one prompt past the 4096-token window, so decode trims its pages
+    reqs = lambda: serve_requests(cfg.vocab_size, seed=0, long_prompt=4500)
+    window = max(len(r.prompt) + r.max_new for r in reqs())
+    window = -(-window // 16) * 16
+    every = tuple(KERNELS)
+    counts, wall = None, None
+    for label, cache, draft_k, need in (
+            ("mixtral_bf16", None, 0, every),
+            ("mixtral_bf16_draft_k2", None, 2,
+             ("paged_decode_span_attention", "grouped_matmul")),
+            ("mixtral_int8", torch.int8, 0, every)):
+        ctx = ModelContext(compute_dtype=torch.bfloat16,
+                           decode_cache_dtype=cache, device=device)
+        engine = ServeEngine(cfg, ctx, window=window, max_batch=4, chunk=8,
+                             page_size=16, draft_k=draft_k)
+        _, c, w = serve_run(label, mods, engine, params, reqs(),
+                            cfg.vocab_size, need)
+        if engine.counters["pages_trimmed"] == 0:
+            raise AssertionError(f"{label}: the window trimmed no page")
+        if counts is None:
+            counts, wall = c, w
+    # the bf16 run once more under the profiler: device-busy share
+    ctx = ModelContext(compute_dtype=torch.bfloat16, device=device)
+    engine = ServeEngine(cfg, ctx, window=window, max_batch=4, chunk=8,
+                         page_size=16)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        engine.run(params, reqs())
+        torch.cuda.synchronize()
+    print_profile(prof, wall)
+
+    # one layer's experts in int8 through moe_ffn: kernel against plain
+    mlp = quantize_moe_params(tree_index(params["blocks"]["sl0"]["mlp"], 0))
+    g = torch.Generator(device=device)
+    g.manual_seed(2)
+    x = torch.randn((1, 128, cfg.d_model), generator=g, device=device).to(
+        torch.bfloat16)
+    run = lambda impl: moe_ffn(mlp, x, cfg, torch.bfloat16,
+                               dispatch="grouped", impl=impl,
+                               with_aux=False)[0]
+    outs = {"ref": run("ref")}
+    torch.cuda.synchronize()
+    # the serving MoE layer never waits for the device: the dispatch plan
+    # is sized statically and computed on the card
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs["cuda"] = run("cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    err = float((outs["cuda"].float() - outs["ref"].float()).abs().max())
+    big = float(outs["ref"].float().abs().max())
+    # bf16 rows round after up/gate and after down: two bf16 steps
+    if not bool(torch.isfinite(outs["cuda"].float()).all()) \
+            or err > 2 ** -6 * big:
+        raise AssertionError(f"int8 experts: max_abs_err {err} > "
+                             f"{2 ** -6 * big}")
+    log(f"mixtral int8 experts (one layer, 128 tokens): moe_ffn cuda vs "
+        f"ref max_abs_err={err:.3e} (max |out| {big:.3e}, limit 2^-6 of "
+        f"it); no host sync in the cuda call")
+    del params, mlp
+    torch.cuda.empty_cache()
+
+    # f32 (TF32 off) at fewer layers: kernels == plain path, token for
+    # token, one prompt past the window so the trimmed table is compared
+    cfg32 = dataclasses.replace(full, n_layers=2)  # ~21 GB of f32 weights
+    params = init_params(api.model_specs(cfg32), seed=1, device=device)
+    short = serve_requests(cfg32.vocab_size, seed=1, n=4, max_new=16,
+                           long_prompt=4500)
+    for r in short[:4]:
+        r.prompt = r.prompt[:160]
+    f32_equality("mixtral", mods, cfg32, params, short, every, trim=True)
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def main() -> int:
@@ -225,13 +582,10 @@ def main() -> int:
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    from repro_torch.configs.registry import get_arch
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as kern
-    from repro_torch.models import api
-    from repro_torch.models.blocks import ModelContext
-    from repro_torch.models.params import init_params
-    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.kernels import moe_gemm
+    mods = (kern, moe_gemm)
 
     # f32 comparisons run in full f32 (matmul and cuDNN)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -245,6 +599,7 @@ def main() -> int:
     log(smi)
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
+    t_start = time.perf_counter()
 
     # 2. build
     t0 = time.perf_counter()
@@ -268,81 +623,90 @@ def main() -> int:
                                 t=1, d=128, window=500))
     variants.append(kernel_case(kern, "paged_decode_span_attention", "bf16",
                                 t=128, d=128, window=500))
+    # Mixtral's: max_batch 4, 6 query heads per KV head, the 4096-token
+    # window; one row below the window, one whose span straddles its
+    # edge, two with trimmed pages
+    mix_attn = dict(h=48, kv=8, d=128, window=4096,
+                    ctxs=(1000, 4150, 4400, 4608))
+    for pages in ("bf16", "f32", "int8"):
+        variants.append(kernel_case(kern, "paged_decode_attention", pages,
+                                    t=1, **mix_attn))
+        variants.append(kernel_case(kern, "paged_decode_span_attention",
+                                    pages, t=128, **mix_attn))
     for v in variants:
-        log(f"kernel {v['name']} pages={v['pages']} t={v['t']} d={v['d']} "
-            f"window={v['window']}: max_abs_err={v['max_abs_err']:.3e} "
+        log(f"kernel {v['name']} pages={v['pages']} t={v['t']} b={v['b']} "
+            f"h={v['h']}/{v['kv']} d={v['d']} window={v['window']} "
+            f"max_ctx={v['max_ctx']} trimmed_pages={v['trimmed_pages']}: "
+            f"max_abs_err={v['max_abs_err']:.3e} "
             f"ms={v['ms']:.4f} plain_ms={v['plain_ms']:.4f} "
             f"library_ms={v['library_ms']:.4f} bound_ms={v['bound_ms']:.4f}"
             f" ({v['bound_by']})")
+    gemms = []
+    mix_d, mix_f = 6144, 16384
+    for xdt, wdt in (("bf16", "bf16"), ("f32", "f32"), ("bf16", "int8")):
+        for t in (4, 128):
+            gemms.append(gemm_case("grouped_matmul", xdt, wdt, t=t, d=mix_d,
+                                   f=mix_f))
+        gemms.append(gemm_case("grouped_matmul", xdt, wdt, t=4, d=mix_f,
+                               f=mix_d))  # down projection, decode
+        gemms.append(gemm_case("grouped_matmul", xdt, wdt, t=10, d=64, f=96,
+                               e=4))  # mixtral smoke widths
+    gemms.append(gemm_case("grouped_matmul", "bf16", "bf16", t=128,
+                           d=mix_f, f=mix_d))  # down projection, prefill
+    gemms.append(gemm_case("grouped_matmul", "bf16", "bf16", t=4, d=mix_d,
+                           f=mix_f, all_pad=True))
+    for v in gemms:
+        lib = ("null" if v["library_ms"] is None
+               else f"{v['library_ms']:.4f}")
+        log(f"kernel grouped_matmul x={v['x']} w={v['w']} t={v['t']} "
+            f"M={v['m']} D={v['d']} F={v['f']} experts={v['experts']}: "
+            f"max_abs_err={v['max_abs_err']:.3e} (tol {v['tol']:.3e}, max "
+            f"|out| {v['max_abs_out']:.3e}) ms={v['ms']:.4f} "
+            f"plain_ms={v['plain_ms']:.4f} library_ms={lib} "
+            f"bound_ms={v['bound_ms']:.4f} ({v['bound_by']}) "
+            f"bytes={v['bytes']:.4g} design_weight_bytes="
+            f"{v['design_weight_bytes']:.4g}")
+    log(f"kernels phase done at {time.perf_counter() - t_start:.1f}s")
 
-    # 4. serve full-width qwen2-0.5B through both kernels
-    cfg = get_arch("qwen2_0_5b")
-    params = init_params(api.model_specs(cfg), seed=0,
-                         dtype=torch.bfloat16, device="cuda")
-    reqs = lambda: serve_requests(cfg.vocab_size, seed=0)
-    window = 640  # longest prompt (600) + max_new (32), page-aligned
-    both = tuple(KERNELS)
-    runs = {}
-    for label, cache, draft_k, need in (
-            ("bf16", None, 0, both),
-            # greedy speculation verifies every step through the span
-            # kernel; the one-token decode kernel is not on that path
-            ("bf16_draft_k2", None, 2, ("paged_decode_span_attention",)),
-            ("int8", torch.int8, 0, both)):
-        ctx = ModelContext(compute_dtype=torch.bfloat16,
-                           decode_cache_dtype=cache, device="cuda")
-        engine = ServeEngine(cfg, ctx, window=window, max_batch=4, chunk=8,
-                             page_size=16, draft_k=draft_k)
-        runs[label] = serve_run(label, kern, engine, params, reqs(),
-                                cfg.vocab_size, need)
-    main_launches = runs["bf16"][1]
-    del params
-    torch.cuda.empty_cache()
+    # 4-5. the serving paths, each with the counts read around its runs
+    counts = {"qwen2_0_5b": serve_qwen(mods)}
+    log(f"qwen phase done at {time.perf_counter() - t_start:.1f}s")
+    counts[f"mixtral_8x22b_{MIXTRAL_LAYERS}l"] = serve_mixtral(mods)
+    log(f"mixtral phase done at {time.perf_counter() - t_start:.1f}s")
+    main_path = counts[f"mixtral_8x22b_{MIXTRAL_LAYERS}l"]
 
-    # f32 (TF32 off): greedy tokens through the kernels == gather path
-    params = init_params(api.model_specs(cfg), seed=1, device="cuda")
-    short = serve_requests(cfg.vocab_size, seed=1, n=4)
-    for r in short:
-        r.prompt = r.prompt[:160]
-        r.max_new = 16
-    outs = {}
-    for impl in ("cuda", "ref"):
-        ctx = ModelContext(compute_dtype=torch.float32, attn_impl=impl,
-                           device="cuda")
-        engine = ServeEngine(cfg, ctx, window=176, max_batch=4, chunk=8,
-                             page_size=16)
-        outs[impl], _ = serve_run(
-            f"f32_{impl}", kern, engine, params, [
-                type(r)(rid=r.rid, prompt=r.prompt, max_new=r.max_new)
-                for r in short], cfg.vocab_size,
-            both if impl == "cuda" else ())
-    for rid in outs["cuda"]:
-        if not (outs["cuda"][rid] == outs["ref"][rid]).all():
-            raise AssertionError(f"f32 request {rid}: cuda tokens "
-                                 f"{outs['cuda'][rid]} != ref "
-                                 f"{outs['ref'][rid]}")
-    log("serve[f32]: greedy tokens through the kernels equal the gather "
-        "path's")
-
-    # 5. one line for every kernel: main-path representative (bf16 pages;
-    #    decode at B=8, the span at T=128) plus every variant measured
+    # one line for every kernel: launches on this slice's main path (the
+    # Mixtral bf16 run), a main-path representative (paged: bf16 pages at
+    # Mixtral's shapes, decode and the span at T=128; grouped: bf16, a
+    # 4-token decode step's up projection), and every variant measured
     kernels = []
     for kname, replaces in KERNELS.items():
-        mine = [v for v in variants if v["name"] == kname]
-        rep = [v for v in mine if v["pages"] == "bf16" and v["d"] == 64
-               and v["t"] in (1, 128)][0]
+        if kname == "grouped_matmul":
+            mine = gemms
+            rep = [v for v in mine if v["x"] == "bf16" and v["w"] == "bf16"
+                   and v["t"] == 4 and v["d"] == mix_d][0]
+            keys = ("x", "w", "t", "m", "d", "f", "experts", "max_abs_err",
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "design_weight_bytes")
+        else:
+            mine = [v for v in variants if v["name"] == kname]
+            rep = [v for v in mine if v["pages"] == "bf16" and v["h"] == 48
+                   and v["t"] in (1, 128)][0]
+            keys = ("pages", "t", "b", "h", "kv", "d", "window", "max_ctx",
+                    "trimmed_pages", "max_abs_err", "ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by")
         kernels.append({
-            "name": kname, "route": "cuda", "source": SOURCE,
-            "replaces": replaces, "launches": main_launches[kname],
+            "name": kname, "route": "cuda", "source": SOURCES[kname],
+            "replaces": replaces, "launches": main_path[kname],
+            "launches_by_path": {p: c.get(kname, 0)
+                                 for p, c in counts.items()},
             "max_abs_err": max(v["max_abs_err"] for v in mine),
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep["library_ms"],
-            "variants": [{k: v[k] for k in (
-                "pages", "t", "d", "window", "max_abs_err", "ms",
-                "plain_ms", "library_ms", "bound_ms", "bound_by")}
-                for v in mine],
+            "variants": [{k: v[k] for k in keys} for v in mine],
         })
+    log(f"total {time.perf_counter() - t_start:.1f}s")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

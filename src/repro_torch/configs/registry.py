@@ -27,7 +27,7 @@ ARCH_IDS = (
     "rwkv6_1_6b",
 )
 
-PORTED = ("qwen2_0_5b",)
+PORTED = ("qwen2_0_5b", "mixtral_8x22b", "kimi_k2_1t_a32b")
 
 
 def canonical(arch: str) -> str:

@@ -1,10 +1,11 @@
-"""Public paged-attention entry points with an implementation switch
-(``repro/kernels/ops.py`` without the mesh branch).
+"""Public kernel entry points with an implementation switch
+(``repro/kernels/ops.py`` without the mesh branches): paged attention
+and the m-grouped MoE GEMM.
 
 ``impl="cuda"`` launches the hand-written Hopper kernel and needs CUDA
 tensors; ``impl="ref"`` runs the plain-torch oracle (gather the pages,
-then attend) on any device. Model code picks the impl through
-``ModelContext.attn_impl``.
+then attend; one f32 product per expert) on any device. Model code picks
+the impl through ``ModelContext.attn_impl`` (and ``moe_impl``).
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import decode_attention as _kernels
+from repro_torch.kernels import moe_gemm as _moe_gemm
+from repro_torch.kernels import ref as _ref
 
 IMPLS = ("cuda", "ref")
 
@@ -66,3 +69,22 @@ def paged_decode_span_attention(q: torch.Tensor, k_pages: torch.Tensor,
     return _kernels.paged_decode_span_attention(
         q, k_pages, v_pages, page_table, pos, k_scale=k_scale,
         v_scale=v_scale, window=window)
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_ids: torch.Tensor,
+                   *, w_scale: Optional[torch.Tensor] = None,
+                   impl: str = "cuda", mesh=None) -> torch.Tensor:
+    """m-grouped contiguous GEMM over expert-sorted token rows.
+
+    x: (M, D) sorted+padded rows; w: (E, D, F); group_ids (M // block_m,)
+    int32 expert id per m-tile (-1 = pad tile -> zero rows). ``w_scale``
+    (E,) dequantizes int8 expert weights after the f32 product. The
+    reference's expert-parallel ``mesh`` branch is not ported."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "grouped_matmul over a mesh (expert parallelism) is not ported "
+            "yet")
+    _cuda_only(x, impl)
+    if impl == "ref":
+        return _ref.grouped_matmul_ref(x, w, group_ids, w_scale=w_scale)
+    return _moe_gemm.grouped_matmul(x, w, group_ids, w_scale=w_scale)

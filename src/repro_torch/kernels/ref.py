@@ -1,8 +1,9 @@
-"""Plain-torch twins of the paged-attention oracles in
+"""Plain-torch twins of the paged-attention and grouped-GEMM oracles in
 ``repro/kernels/ref.py`` (the correctness contract of the CUDA kernels).
 
 They materialize what the kernels never do: each request's contiguous
-KV view, gathered (and dequantized) from the page pool.
+KV view, gathered (and dequantized) from the page pool, and each expert's
+weights in f32.
 """
 
 from __future__ import annotations
@@ -72,3 +73,35 @@ def paged_gather_dequant_ref(pages: torch.Tensor, page_table: torch.Tensor,
     if scale is not None:
         g = g.float() * scale[tab][..., None].float()
     return g.to(dtype).reshape(b, m * p, kv, d)
+
+
+def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor,
+                       group_ids: torch.Tensor, *,
+                       w_scale: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Segment-matmul oracle of the m-grouped MoE GEMM.
+
+    x: (M, D) sorted+padded token rows; w: (E, D, F); group_ids
+    (M // block_m,) expert id per m-tile (-1 = pad-only tile -> zeros).
+    Computes in f32 and returns x's dtype; ``w_scale`` (E,) multiplies
+    the f32 product after the dot. Ids past the last expert clamp to it,
+    as the reference's gather does. The reference gathers one (D, F)
+    weight per tile; this twin runs one product per expert over that
+    expert's rows instead, so it never holds more than one expert's
+    weights in f32."""
+    m = x.shape[0]
+    e, _, f = w.shape
+    nb = group_ids.shape[0]
+    row_e = group_ids.long().repeat_interleave(m // nb)
+    xf = x.float()
+    out = torch.zeros((m, f), dtype=torch.float32, device=x.device)
+    for g in torch.unique(group_ids).tolist():
+        if g < 0:
+            continue
+        rows = torch.nonzero(row_e == g).squeeze(1)
+        ge = min(g, e - 1)
+        acc = xf[rows] @ w[ge].float()
+        if w_scale is not None:
+            acc = acc * w_scale[ge].float()
+        out[rows] = acc
+    return out.to(x.dtype)

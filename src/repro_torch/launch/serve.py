@@ -15,6 +15,8 @@ the operations that took the most device time.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b \
       --smoke --trace 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral_8x22b \
+      --smoke --trace 4 --device cpu [--moe-dispatch capacity]
 """
 
 from __future__ import annotations
@@ -135,6 +137,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="disable prompt-prefix page sharing")
     ap.add_argument("--prefill-chunk", type=int, default=128,
                     help="span size for chunked prefill")
+    ap.add_argument("--moe-dispatch", choices=["grouped", "capacity"],
+                    default="grouped",
+                    help="MoE serving dispatch: sort-based dropless "
+                         "grouped GEMM (default) or the dense capacity "
+                         "buffer")
     ap.add_argument("--kv-int8", action="store_true",
                     help="int8 paged KV pages")
     ap.add_argument("--temperature", type=float, default=0.0)
@@ -161,7 +168,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ctx = ModelContext(
         compute_dtype=dtype,
         decode_cache_dtype=torch.int8 if args.kv_int8 else None,
-        device=device)
+        device=device, moe_dispatch=args.moe_dispatch)
     params = init_params(api.model_specs(cfg), seed=args.seed, dtype=dtype,
                          device=device)
     window = args.prompt_len + args.max_new

@@ -3,9 +3,9 @@
 A *block* is ``block_len`` sublayers; parameters of all blocks are
 stacked on a leading ``n_blocks`` axis, and lm.py runs a Python loop over
 that axis where the reference runs ``lax.scan``. Only what paged serving
-of a pure-attention decoder needs is ported: attention + dense-FFN specs,
-the paged pool layout, int8 page quantization, and one-token / T-token
-decode against the pool.
+of a pure-attention decoder needs is ported: attention + dense-FFN or MoE
+specs, the paged pool layout, int8 page quantization, and one-token /
+T-token decode against the pool.
 
 Pages are a shared pool per layer: k/v of shape (num_pages, page_size, KV,
 D), plus (num_pages, page_size, KV) bf16 scale pages when the cache dtype
@@ -26,7 +26,8 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models.attention import (apply_positional, decode_attention,
                                           decode_span_attention)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.moe import dense_ffn, dense_ffn_specs
+from repro_torch.models.moe import (dense_ffn, dense_ffn_specs, moe_ffn,
+                                    moe_param_specs)
 from repro_torch.models.ops import rms_norm
 from repro_torch.models.params import ParamSpec, ones_init, zeros_init
 
@@ -44,12 +45,17 @@ class ModelContext:
 
     ``device`` defaults to the card (raising when there is none);
     ``attn_impl`` defaults to "cuda" on a CUDA device and "ref" (the
-    gather path of models/attention.py) on the CPU."""
+    gather path of models/attention.py) on the CPU. ``moe_dispatch`` is
+    the serving MoE dispatch: "grouped" (sort-based dropless through the
+    grouped GEMM; the default) or "capacity" (the dropless capacity
+    buffer); ``moe_impl=None`` derives the GEMM impl from attn_impl."""
 
     def __init__(self, *, compute_dtype: torch.dtype = torch.bfloat16,
                  attn_impl: Optional[str] = None,
                  decode_cache_dtype: Optional[torch.dtype] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 moe_dispatch: str = "grouped",
+                 moe_impl: Optional[str] = None):
         self.device = resolve_device(device)
         if attn_impl is None:
             attn_impl = "cuda" if self.device.type == "cuda" else "ref"
@@ -61,10 +67,25 @@ class ModelContext:
         self.compute_dtype = compute_dtype
         self.attn_impl = attn_impl
         self.decode_cache_dtype = decode_cache_dtype  # None -> compute
+        if moe_dispatch not in ("grouped", "capacity"):
+            raise ValueError(f"moe_dispatch must be 'grouped' or "
+                             f"'capacity', got {moe_dispatch!r}")
+        if moe_impl is not None and moe_impl not in kops.IMPLS:
+            raise ValueError(f"moe_impl must be one of {kops.IMPLS}, "
+                             f"got {moe_impl!r}")
+        self.moe_dispatch = moe_dispatch
+        self.moe_impl = moe_impl
 
     @property
     def cache_dtype(self) -> torch.dtype:
         return self.decode_cache_dtype or self.compute_dtype
+
+    def moe_kwargs(self) -> Dict[str, Any]:
+        """Serving-path moe_ffn kwargs for this context (dropless)."""
+        if self.moe_dispatch != "grouped":
+            return {"dropless": True}
+        return {"dispatch": "grouped",
+                "impl": self.moe_impl or self.attn_impl}
 
 
 # ---------------------------------------------------------------------------
@@ -93,16 +114,16 @@ def attn_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 def sublayer_specs(cfg: ModelConfig, idx: int) -> Dict[str, Any]:
     kind = cfg.sublayer_kinds()[idx]
-    if kind != "attn" or cfg.sublayer_has_moe(idx):
+    if kind != "attn":
         raise NotImplementedError(
-            f"{cfg.name}: sublayer {idx} ({kind}, moe="
-            f"{cfg.sublayer_has_moe(idx)}) is not ported yet")
+            f"{cfg.name}: sublayer {idx} ({kind}) is not ported yet")
     d = cfg.d_model
     return {
         "ln1": ParamSpec((d,), ("embed",), init=ones_init()),
         "ln2": ParamSpec((d,), ("embed",), init=ones_init()),
         "core": attn_param_specs(cfg),
-        "mlp": dense_ffn_specs(cfg),
+        "mlp": (moe_param_specs(cfg) if cfg.sublayer_has_moe(idx)
+                else dense_ffn_specs(cfg)),
     }
 
 
@@ -223,12 +244,18 @@ def _table_lookup(page_table: Tensor, bidx: Tensor, posn: Tensor,
     return page_table[bidx, col.long()].long()
 
 
-def _attn_out_mlp(p, x, out, cfg: ModelConfig, ctx: ModelContext) -> Tensor:
+def _attn_out_mlp(p, x, out, cfg: ModelConfig, ctx: ModelContext,
+                  idx: int) -> Tensor:
     dtype = ctx.compute_dtype
     core = torch.einsum("bshk,hkd->bsd", out, p["core"]["wo"].to(dtype))
     x = x + core
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + dense_ffn(p["mlp"], h, cfg, dtype)
+    if cfg.sublayer_has_moe(idx):
+        mlp, _ = moe_ffn(p["mlp"], h, cfg, dtype, with_aux=False,
+                         **ctx.moe_kwargs())
+    else:
+        mlp = dense_ffn(p["mlp"], h, cfg, dtype)
+    return x + mlp
 
 
 def sublayer_decode_paged(p, x: Tensor, pages: Dict[str, Tensor],
@@ -255,7 +282,7 @@ def sublayer_decode_paged(p, x: Tensor, pages: Dict[str, Tensor],
     else:
         kg, vg = _paged_gather(pages, page_table, dtype)
         out = decode_attention(q, kg, vg, pos + 1, cfg)
-    return _attn_out_mlp(p, x, out, cfg, ctx), pages
+    return _attn_out_mlp(p, x, out, cfg, ctx, idx), pages
 
 
 def block_decode_paged(block_params, x, pages, page_table, pos, cfg, ctx):
@@ -297,7 +324,7 @@ def sublayer_decode_span_paged(p, x: Tensor, pages: Dict[str, Tensor],
     else:
         kg, vg = _paged_gather(pages, page_table, dtype)
         out = decode_span_attention(q, kg, vg, pos, cfg)
-    return _attn_out_mlp(p, x, out, cfg, ctx), pages
+    return _attn_out_mlp(p, x, out, cfg, ctx, idx), pages
 
 
 def block_decode_span_paged(block_params, x, pages, page_table, pos, live,

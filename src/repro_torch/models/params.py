@@ -115,14 +115,19 @@ def params_from_numpy(tree: Tree, device: DeviceLike = None,
                       dtype: Optional[torch.dtype] = None) -> Tree:
     """The weight bridge: a nested dict of numpy arrays (the JAX
     reference's ``init_params`` tree after ``np.asarray``) becomes the
-    port's tensors by path, shapes unchanged. ``dtype`` casts floating
-    leaves; integer leaves keep theirs."""
+    port's tensors by path, shapes unchanged (stacked expert leaves stay
+    (n_blocks, E, D, F)). ``dtype`` casts floating leaves; integer leaves
+    (int8 expert weights) keep theirs, and so do the f32 ``<name>_scale``
+    leaves that dequantize them."""
     dev = resolve_device(device)
 
-    def leaf(a: Any) -> torch.Tensor:
-        t = torch.from_numpy(np.array(a, copy=True))
-        if dtype is not None and t.is_floating_point():
+    def walk(node: Any, key: str) -> Any:
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        t = torch.from_numpy(np.array(node, copy=True))
+        if dtype is not None and t.is_floating_point() \
+                and not key.endswith("_scale"):
             t = t.to(dtype)
         return t.to(dev)
 
-    return tree_map(leaf, tree)
+    return walk(tree, "")

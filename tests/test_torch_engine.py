@@ -2,7 +2,8 @@
 gather path) on qwen2 smoke with the same weights and requests: greedy
 tokens must be identical, and so must the scheduler's decisions and the
 engine's counters (host syncs, span-prefill calls, speculative tokens,
-prefix-cache hits)."""
+prefix-cache hits). The same holds on mixtral smoke, whose MoE FFN runs
+the grouped dispatch and whose 8-token window trims pages."""
 
 import jax
 import jax.numpy as jnp
@@ -28,12 +29,21 @@ COUNTERS = ("host_syncs", "chunks", "prefill_span_calls", "spec_tokens",
             "cached_prompt_tokens", "span_prefill_compiles")
 
 
-@pytest.fixture(scope="module")
-def qwen():
-    cfg = get_smoke("qwen2_0_5b")
+def _model(arch):
+    cfg = get_smoke(arch)
     jp = j_init_params(jax.random.key(0), japi.model_specs(cfg))
     return cfg, jp, params_from_numpy(jax.tree.map(np.asarray, jp),
                                       device="cpu")
+
+
+@pytest.fixture(scope="module")
+def qwen():
+    return _model("qwen2_0_5b")
+
+
+@pytest.fixture(scope="module")
+def mixtral():
+    return _model("mixtral_8x22b")
 
 
 def _engines(cfg, int8=False, **kw):
@@ -89,6 +99,35 @@ def test_eviction_scenario_matches_reference(qwen, case):
     assert te.counters["host_syncs"] == te.counters["chunks"]
     if case == "draft_k2":
         assert te.counters["spec_tokens"] > 0
+
+
+@pytest.mark.parametrize("case", ["plain", "draft_k2", "int8"])
+def test_moe_eviction_and_trim_match_reference(mixtral, case):
+    """Mixtral smoke through the eviction scenario's small pool: prompts
+    longer than the 8-token window, so decode trims pages behind it as
+    the reference does (which frees enough pages that nothing is
+    preempted); speculation and int8 pages as above."""
+    kw = dict(EVICTION)
+    if case == "draft_k2":
+        kw["draft_k"] = 2
+    je, te = _run_both(mixtral, _prompts(mixtral[0], 5, 8, 14), 14,
+                       int8=case == "int8", **kw)
+    assert te.counters["pages_trimmed"] == je.counters["pages_trimmed"] > 0
+    assert te.scheduler.stats["completions"] == 5
+    if case == "draft_k2":
+        assert te.counters["spec_tokens"] > 0
+
+
+def test_moe_prefix_hits_match_reference(mixtral):
+    cfg = mixtral[0]
+    shared = _prompts(cfg, 1, 16, 16, seed=3)[0]
+    tails = _prompts(cfg, 3, 3, 9, seed=4)
+    prompts = [np.concatenate([shared, t]) for t in tails]
+    je, te = _run_both(mixtral, prompts, 6, runs=2, window=48, max_batch=2,
+                       chunk=4, page_size=8)
+    assert te.prefix_hit_rate > 0
+    assert te.counters["suffix_prefills"] > 0
+    assert te.counters["pages_trimmed"] == je.counters["pages_trimmed"]
 
 
 def test_prefix_hits_on_second_run_match_reference(qwen):

@@ -4,7 +4,10 @@ Run on a machine with an H100:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 Each kernel variant is held against its plain-torch version on the same
 card; f32 at 1e-4 (summation order differs from the gather oracle), bf16
-at 2e-2 (the plain version rounds the gathered view to bf16)."""
+at 2e-2 (the plain version rounds the gathered view to bf16). The grouped
+GEMM: f32 within 3 * sqrt(D) * eps32 * max|out| (summation order over the
+contraction; a product of TF32- or bf16-rounded inputs fails it), bf16
+outputs within one bf16 step (2^-7 relative)."""
 
 import numpy as np
 import pytest
@@ -12,6 +15,7 @@ import torch
 
 from repro_torch.configs.registry import get_smoke
 from repro_torch.kernels import decode_attention as kern
+from repro_torch.kernels import moe_gemm, ref
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import api
 from repro_torch.models.blocks import ModelContext, paged_quantize
@@ -144,3 +148,119 @@ def test_launcher_profile_reads_device_time(cuda, capsys):
     line = [ln for ln in out.splitlines() if ln.startswith("profile:")][0]
     events = int(line.split(",")[-1].split()[0])
     assert events > 0, line
+
+
+# (block_m, tile ids, D, F): ragged smoke widths, runs longer than a
+# block's rows, block_m above them, unaligned rows (scalar loads), an
+# all -1 plan
+GEMM_CASES = [
+    (8, [0, 0, 1, -1, 2, 3, 3, -1], 64, 96),
+    (8, [1] * 20 + [0, -1], 96, 32),
+    (1, [2, 2, 0, 3, 3, 3, -1, 1], 36, 100),
+    (128, [3, 1, -1], 200, 256),
+    (64, [0, 0, 0, 2], 128, 130),
+    (8, [-1, -1, -1], 64, 96),
+]
+GEMM_DTYPES = [("f32", "f32"), ("bf16", "bf16"), ("bf16", "int8"),
+               ("f32", "int8")]
+
+
+@pytest.mark.parametrize("xw", GEMM_DTYPES)
+@pytest.mark.parametrize("bm,gids,d,f", GEMM_CASES)
+def test_grouped_matmul_matches_plain(cuda, xw, bm, gids, d, f):
+    g = torch.Generator(device="cpu").manual_seed(len(gids) * d + f)
+    e = 4
+    xdt = torch.float32 if xw[0] == "f32" else torch.bfloat16
+    x = torch.randn((bm * len(gids), d), generator=g).to(xdt)
+    if xw[1] == "int8":
+        w = torch.randint(-127, 128, (e, d, f), generator=g,
+                          dtype=torch.int8)
+        scale = torch.rand((e,), generator=g) * 0.01 + 1e-3
+    else:
+        w, scale = torch.randn((e, d, f), generator=g).to(xdt), None
+    x, w, gids_t = x.to(cuda), w.to(cuda), torch.tensor(
+        gids, dtype=torch.int32, device=cuda)
+    scale = None if scale is None else scale.to(cuda)
+    before = moe_gemm.launches["grouped_matmul"]
+    got = moe_gemm.grouped_matmul(x, w, gids_t, w_scale=scale)
+    assert moe_gemm.launches["grouped_matmul"] == before + 1
+    want = ref.grouped_matmul_ref(x, w, gids_t, w_scale=scale)
+    torch.cuda.synchronize()
+    assert got.dtype == xdt and got.shape == want.shape
+    big = float(want.float().abs().max()) if want.numel() else 0.0
+    if xdt == torch.bfloat16:
+        tol = dict(rtol=2 ** -7, atol=2 ** -7 * big + 1e-6)
+    else:
+        tol = dict(rtol=0, atol=3 * d ** 0.5 * 1.2e-7 * big + 1e-6)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    rows = got.reshape(len(gids), bm, f)[torch.tensor(gids) < 0]
+    assert bool((rows == 0).all())
+
+
+def test_grouped_matmul_rejects_bad_inputs(cuda):
+    x = torch.randn((16, 8), device=cuda)
+    w = torch.randn((2, 8, 4), device=cuda)
+    gids = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        moe_gemm.grouped_matmul(x, w, gids.long())
+    with pytest.raises(ValueError):
+        moe_gemm.grouped_matmul(x, w.to(torch.bfloat16), gids)
+    with pytest.raises(ValueError):
+        moe_gemm.grouped_matmul(x[:15], w, gids)
+
+
+@pytest.mark.parametrize("cache", [None, torch.int8])
+@pytest.mark.parametrize("draft_k", [0, 2])
+def test_moe_engine_cuda_matches_ref(cuda, cache, draft_k):
+    """Mixtral smoke: greedy tokens through the grouped-GEMM and paged
+    kernels equal the plain path's (f32), with pages trimmed."""
+    cfg = get_smoke("mixtral_8x22b")
+    params = init_params(api.model_specs(cfg), seed=0, device=cuda)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(8, 15)))
+               for _ in range(5)]
+    outs = []
+    for impl in ("cuda", "ref"):
+        ctx = ModelContext(compute_dtype=torch.float32, attn_impl=impl,
+                           decode_cache_dtype=cache, device=cuda)
+        eng = ServeEngine(cfg, ctx, window=64, max_batch=3, chunk=4,
+                          page_size=8, num_pages=12, draft_k=draft_k)
+        moe_gemm.reset_launches()
+        outs.append(eng.run(params, [Request(rid=i, prompt=p, max_new=14)
+                                     for i, p in enumerate(prompts)]))
+        assert (moe_gemm.launches["grouped_matmul"] > 0) == (impl == "cuda")
+        assert eng.counters["pages_trimmed"] > 0
+    for i in range(len(prompts)):
+        np.testing.assert_array_equal(outs[0][i], outs[1][i])
+
+
+@pytest.mark.parametrize("arch", ["qwen2_0_5b", "mixtral_8x22b"])
+@pytest.mark.parametrize("draft_k", [0, 2])
+def test_decode_chunk_never_waits_for_the_device(cuda, arch, draft_k,
+                                                 monkeypatch):
+    """A decode chunk (paged attention, the MoE dispatch plan, the grouped
+    GEMM, sampling) queues its work without one host sync: the engine's
+    drain after the chunk is its only wait."""
+    cfg = get_smoke(arch)
+    params = init_params(api.model_specs(cfg), seed=0, device=cuda)
+    chunks = []
+    for name in ("_run_chunk", "_run_chunk_spec"):
+        inner = getattr(ServeEngine, name)
+
+        def strict(self, *a, _inner=inner, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = _inner(self, *a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            chunks.append(out.shape)
+            return out
+        monkeypatch.setattr(ServeEngine, name, strict)
+    ctx = ModelContext(compute_dtype=torch.bfloat16, device=cuda)
+    eng = ServeEngine(cfg, ctx, window=64, max_batch=3, chunk=4, page_size=8,
+                      draft_k=draft_k)
+    rng = np.random.default_rng(2)
+    eng.run(params, [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                                        12), max_new=9)
+                     for i in range(4)])
+    assert chunks

@@ -1,6 +1,8 @@
 """Paged decode datapath of the port against the JAX package on qwen2
 smoke: ``decode_span_paged_fn`` (a span prefill) then ``decode_paged_fn``
-(one decode step), logits and written pages, for f32, bf16 and int8 pools.
+(one decode step), logits and written pages, for f32, bf16 and int8 pools;
+and the same on mixtral smoke (MoE FFN through the grouped dispatch,
+sliding window 8, untied head) for f32 and int8 pools.
 
 Tolerances: f32 at 1e-4, the JAX serve tests' tolerance; bf16 logits at
 2e-2 and bf16 pages within one bf16 step (2^-8 absolute for values
@@ -36,12 +38,21 @@ POOLS = {
 }
 
 
-@pytest.fixture(scope="module")
-def qwen():
-    cfg = get_smoke("qwen2_0_5b")
+def _model(arch):
+    cfg = get_smoke(arch)
     jp = j_init_params(jax.random.key(0), japi.model_specs(cfg))
     return cfg, jp, params_from_numpy(jax.tree.map(np.asarray, jp),
                                       device="cpu")
+
+
+@pytest.fixture(scope="module")
+def qwen():
+    return _model("qwen2_0_5b")
+
+
+@pytest.fixture(scope="module")
+def mixtral():
+    return _model("mixtral_8x22b")
 
 
 def _np(x):
@@ -69,7 +80,19 @@ def _check_pages(jpages, tpages, pool):
 
 @pytest.mark.parametrize("pool", list(POOLS))
 def test_span_then_decode_matches_reference(qwen, pool):
-    cfg, jp, tp = qwen
+    _span_then_decode(qwen, pool)
+
+
+@pytest.mark.parametrize("pool", ["f32", "int8"])
+def test_moe_span_then_decode_matches_reference(mixtral, pool):
+    """Positions up to 23 against a window of 8: the window masks keys."""
+    assert mixtral[0].sliding_window == 8
+    assert "lm_head" in mixtral[2]
+    _span_then_decode(mixtral, pool)
+
+
+def _span_then_decode(model, pool):
+    cfg, jp, tp = model
     jdt, jcache, tdt, tcache, tol = POOLS[pool]
     jctx = JCtx(compute_dtype=jdt, decode_cache_dtype=jcache)
     tctx = TCtx(compute_dtype=tdt, decode_cache_dtype=tcache, device="cpu")

@@ -39,17 +39,23 @@ def smoke():
 
 
 def test_configs_are_copies_of_the_reference():
-    for mine, ref in ((registry.get_arch("qwen2_0_5b"),
-                       j_get_arch("qwen2_0_5b")),
-                      (registry.get_smoke("qwen2-0.5b"),
-                       j_get_smoke("qwen2_0_5b"))):
-        assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+    for arch in ("qwen2_0_5b", "mixtral_8x22b", "kimi_k2_1t_a32b"):
+        for mine, ref in ((registry.get_arch(arch), j_get_arch(arch)),
+                          (registry.get_smoke(arch.replace("_", "-")),
+                           j_get_smoke(arch))):
+            assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
     cfg = registry.get_arch("qwen2_0_5b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size) == \
         (24, 896, 14, 2, 64, 4864, 151936)
+    cfg = registry.get_arch("mixtral_8x22b")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size,
+            cfg.n_experts, cfg.experts_per_token, cfg.sliding_window,
+            cfg.tie_embeddings) == \
+        (56, 6144, 48, 8, 128, 16384, 32768, 8, 2, 4096, False)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        registry.get_arch("mixtral_8x22b")
+        registry.get_arch("jamba_v01_52b")
     with pytest.raises(KeyError):
         registry.get_arch("gpt5")
 
@@ -154,3 +160,58 @@ def test_embed_lookup_wraps_negative_ids_like_jnp_take():
                              jnp.float32)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert torch.isnan(got[0, 4]).all()
+
+
+@pytest.mark.parametrize("arch", ["mixtral_8x22b", "kimi_k2_1t_a32b"])
+def test_moe_spec_tree_matches_reference(arch):
+    """Expert leaves (n_blocks, E, D, F), the router and the untied head
+    have the reference's paths, shapes and logical axes."""
+    for cfg in (registry.get_smoke(arch), registry.get_arch(arch)):
+        jspecs = _jax_leaves(japi.model_specs(cfg))
+        tspecs = dict(tree_items(tapi.model_specs(cfg)))
+        assert sorted(jspecs) == sorted(tspecs)
+        for path, spec in tspecs.items():
+            assert spec.shape == jspecs[path].shape, path
+            assert spec.logical == jspecs[path].logical, path
+        e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+        assert tspecs["blocks/sl0/mlp/w_up"].shape == (cfg.n_blocks, e, d, f)
+        assert tspecs["blocks/sl0/mlp/w_down"].shape == \
+            (cfg.n_blocks, e, f, d)
+        assert "lm_head" in tspecs
+
+
+def test_init_params_draws_expert_leaves():
+    cfg = registry.get_smoke("mixtral_8x22b")
+    a = init_params(tapi.model_specs(cfg), seed=5, device="cpu")
+    mlp = a["blocks"]["sl0"]["mlp"]
+    assert tuple(mlp["w_gate"].shape) == (cfg.n_blocks, cfg.n_experts,
+                                          cfg.d_model, cfg.d_ff)
+    # every expert and every leaf draws its own values
+    assert not torch.equal(mlp["w_up"][0, 0], mlp["w_up"][0, 1])
+    assert not torch.equal(mlp["w_up"][0], mlp["w_gate"][0])
+    assert 0.018 < float(mlp["w_up"].std()) < 0.022
+    b = init_params(tapi.model_specs(cfg), seed=5, device="cpu")
+    assert torch.equal(mlp["w_down"], b["blocks"]["sl0"]["mlp"]["w_down"])
+
+
+def test_weight_bridge_carries_expert_leaves_and_int8():
+    """Stacked (n_blocks, E, D, F) expert leaves cross exactly; int8
+    experts keep int8 and their f32 scales keep f32 under a bf16 cast."""
+    from repro.models.moe import quantize_moe_params as j_quantize
+    cfg = registry.get_smoke("mixtral_8x22b")
+    jp = j_init_params(jax.random.key(1), japi.model_specs(cfg))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    jl = _jax_leaves(jp)
+    for path, t in tree_items(tp):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(jl[path]),
+                                      err_msg=path)
+    assert tuple(tp["blocks"]["sl0"]["mlp"]["w_up"].shape) == (
+        cfg.n_blocks, cfg.n_experts, cfg.d_model, cfg.d_ff)
+    layer = jax.tree.map(lambda a: a[0], jp["blocks"]["sl0"]["mlp"])
+    jq = jax.tree.map(np.asarray, j_quantize(layer))
+    tq = params_from_numpy(jq, device="cpu", dtype=torch.bfloat16)
+    assert tq["w_up"].dtype == torch.int8
+    assert tq["w_up_scale"].dtype == torch.float32
+    assert tq["router"].dtype == torch.bfloat16
+    for name in ("w_up", "w_gate", "w_down", "w_up_scale"):
+        np.testing.assert_array_equal(tq[name].numpy(), jq[name])
