@@ -35,10 +35,33 @@ result line):
                (quantize_moe_params) through moe_ffn, kernel against plain,
                with any host sync an error; then 2 layers in f32 (TF32 off)
                whose greedy tokens through the kernels must equal the plain
-               path's, one prompt of 4500 tokens trimming pages.
+               path's, one prompt of 4500 tokens trimming pages;
+  6. train   - full-width, full-depth qwen2-0.5B from seeded random weights
+               through build_trainer + ResilientTrainer.run at batch
+               4 x seq 2048, bf16 compute: step p50/p95, tok/s, MFU, then
+               a step under torch.profiler to warm it, then three
+               windows of two steps under it (device time over each
+               window's own wall time, top device operations); then in f32 (TF32 off) 3 steps through the
+               flash kernel against 3 through the plain attention (the
+               train step build_trainer makes, with attn_impl "cuda" and
+               "ref"; losses within rel 1e-4, grad norms within rel
+               1e-3), and a
+               run with a cube failure injected at step 5 (checkpoints every
+               2 steps; full width, 2 layers) against an uninterrupted one:
+               bit-identical losses, with replayed steps.
 
-Each serve run sets every launch counter to 0 just before it and reads
-them just after; a kernel of that path launched no time fails the run.
+The kernels phase also holds the flash-attention kernel against its plain
+version at qwen2-0.5B's training shape (4 x 14 heads, S=2048, D=64), bf16
+and f32, causal, windowed (512) and bidirectional, and at smoke widths:
+max |error| within TOL, bf16 also within FLASH_ROW_C bf16 steps of each
+row's largest |value|; the windowed cases also run the kernel with the
+window one key off, a planted fault that must fail the same limits.
+Training turns on torch's deterministic mode (process-wide), so it runs
+last.
+
+Each serve or train run sets every launch counter to 0 just before it and
+reads them just after; a kernel of that path launched no time fails the
+run.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -58,13 +81,21 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, no sparsity
 TOL = {"f32": 1e-4, "bf16": 2e-2, "int8": 2e-2}
+# bf16 flash outputs are held, besides TOL, row by row: |got - want| <=
+# FLASH_ROW_C bf16 steps (2^-8) of the row's largest |want|. Most rows
+# average hundreds of keys to |out| ~ 0.05, where TOL alone is loose; the
+# kernel run with the window off by one key must fail this limit.
+BF16_STEP = 2.0 ** -8
+FLASH_ROW_C = 4.0
 KERNELS = {
+    "flash_attention": "src/repro/kernels/flash_attention.py:75",
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:330",
     "paged_decode_span_attention":
         "src/repro/kernels/decode_attention.py:276",
     "grouped_matmul": "src/repro/kernels/moe_gemm.py:55",
 }
 SOURCES = {
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "paged_decode_attention":
         "src/repro_torch/kernels/csrc/paged_attention.cu",
     "paged_decode_span_attention":
@@ -73,6 +104,7 @@ SOURCES = {
 }
 EPS32 = 1.1920929e-07
 MIXTRAL_LAYERS = 4  # of 56: the bf16 weights of 4 layers fill ~21 GB
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
 
 
 def log(msg: str) -> None:
@@ -314,6 +346,95 @@ def gemm_case(name: str, xdt: str, wdt: str, *, t: int, d: int, f: int,
     }
 
 
+def row_steps(got, want) -> float:
+    """max |got - want| in bf16 steps of its row's largest |want|."""
+    err = (got.float() - want.float()).abs()
+    scale = want.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+    return float((err / scale).max()) / BF16_STEP
+
+
+def flash_case(dtype: str, *, causal: bool = True, window=None, bh: int = 56,
+               s: int = 2048, d: int = 64, seed: int = 0):
+    """The flash kernel at one shape: max error against its plain version
+    (bf16: also row by row, and with a window, the reading of the kernel
+    run with the window one key off, which must fail the limit), times of
+    both and of SDPA on the same inputs, and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as flash
+
+    dev = torch.device("cuda")
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    q, k, v = (torch.randn((bh, s, d), generator=g, device=dev).to(dt)
+               for _ in range(3))
+    run = lambda: flash.flash_attention(q, k, v, causal=causal,
+                                        window=window)
+    plain = lambda: flash.flash_attention_plain(q, k, v, causal=causal,
+                                                window=window)
+    before = flash.launches["flash_attention"]
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    if flash.launches["flash_attention"] != before + 1:
+        raise AssertionError("flash: the wrapper did not count its launch")
+    err = float((got.float() - want.float()).abs().max())
+    steps = row_steps(got, want) if dtype == "bf16" else None
+    if (not bool(torch.isfinite(got.float()).all()) or err > TOL[dtype]
+            or (steps is not None and steps > FLASH_ROW_C)):
+        raise AssertionError(f"flash_attention {dtype} bh={bh} s={s} d={d} "
+                             f"causal={causal} window={window}: "
+                             f"max_abs_err {err} (limit {TOL[dtype]}), "
+                             f"row steps {steps} (limit {FLASH_ROW_C})")
+    # a planted fault: the window one key short and one key long
+    planted = []
+    for w in ((window - 1, window + 1) if window is not None else ()):
+        bad = flash.flash_attention(q, k, v, causal=causal, window=w)
+        bad_err = float((bad.float() - want.float()).abs().max())
+        reading = (row_steps(bad, want) if dtype == "bf16" else bad_err)
+        planted.append(reading)
+        if bad_err <= TOL[dtype] and (dtype != "bf16"
+                                      or reading <= FLASH_ROW_C):
+            raise AssertionError(f"flash_attention {dtype}: window {w} "
+                                 f"instead of {window} passes the limit "
+                                 f"({reading})")
+    # SDPA on the same (BH, S, D) inputs: the library's time
+    mask = None
+    if window is not None:
+        pos = torch.arange(s, device=dev)
+        diff = pos[:, None] - pos[None, :]
+        mask = (diff < window) & ((diff >= 0) if causal else True)
+    q4, k4, v4 = q[None], k[None], v[None]  # (1, BH, S, D): SDPA's layout
+    library = lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask, is_causal=causal and mask is None)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    ms = timed_ms(run, flush)
+    plain_ms = timed_ms(plain, flush, iters=5)
+    library_ms = timed_ms(library, flush)
+    # least time: q, k, v read once, out written once; 4 * D flops per
+    # (query, allowed key) pair, counted from the mask
+    qi = torch.arange(s, device=dev, dtype=torch.float64)
+    if window is None:
+        keys = qi + 1 if causal else torch.full_like(qi, s)
+    else:
+        hi = qi + 1 if causal else torch.full_like(qi, s)
+        keys = hi - torch.clamp(qi - window + 1, min=0)
+    pairs = float(keys.sum())
+    flops = 4.0 * d * bh * pairs
+    nbytes = 4 * bh * s * d * q.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS["float32" if dtype == "f32" else "bfloat16"]
+    return {
+        "name": "flash_attention", "dtype": dtype, "bh": bh, "s": s, "d": d,
+        "causal": causal, "window": window, "max_abs_err": err,
+        "row_steps": steps, "planted_fault": planted, "ms": ms,
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "flops": flops,
+    }
+
+
 # ------------------------------------------------------------------- serve
 
 
@@ -490,7 +611,8 @@ def serve_mixtral(mods):
     reqs = lambda: serve_requests(cfg.vocab_size, seed=0, long_prompt=4500)
     window = max(len(r.prompt) + r.max_new for r in reqs())
     window = -(-window // 16) * 16
-    every = tuple(KERNELS)
+    every = ("paged_decode_attention", "paged_decode_span_attention",
+             "grouped_matmul")
     counts, wall = None, None
     for label, cache, draft_k, need in (
             ("mixtral_bf16", None, 0, every),
@@ -514,9 +636,12 @@ def serve_mixtral(mods):
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
         engine.run(params, reqs())
         torch.cuda.synchronize()
-    print_profile(prof, wall)
+        prof_wall = time.perf_counter() - t0
+    log(f"  unprofiled wall of the same run {wall:.3f}s")
+    print_profile(prof, prof_wall)
 
     # one layer's experts in int8 through moe_ffn: kernel against plain
     mlp = quantize_moe_params(tree_index(params["blocks"]["sl0"]["mlp"], 0))
@@ -564,6 +689,188 @@ def serve_mixtral(mods):
     return counts
 
 
+# ------------------------------------------------------------------- train
+
+
+def _param_count(tree) -> int:
+    return sum(p.numel() for p in _leaves(tree))
+
+
+def device_classes(prof):
+    """Device time (ms) of a profile, summed by kind of kernel."""
+    classes = (("flash", ("flash_bf16_kernel", "flash_f32_kernel")),
+               ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "Kernel2")),
+               ("softmax", ("oftMax", "softmax")),
+               ("reduce", ("reduce_kernel",)),
+               ("fill", ("FillFunctor",)),
+               ("copy_cast", ("copy_kernel",)),
+               ("index_sort", ("index", "sort", "Sort", "scatter",
+                               "gather", "radix")))
+    out = {}
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        kind = next((c for c, keys in classes
+                     if any(k in e.key for k in keys)), "other_elementwise")
+        out[kind] = out.get(kind, 0.0) + us / 1e3
+    return {k: round(v, 3) for k, v in sorted(out.items(),
+                                              key=lambda kv: -kv[1])}
+
+
+def train_run(label, mods, trainer, state, steps, need):
+    """ResilientTrainer.run with every launch counter set to 0 just before
+    it and read just after. Returns (state, ledger, losses, counts)."""
+    import math
+    import torch
+    reset_counts(mods)
+    state, ledger, losses = trainer.run(state, steps)
+    torch.cuda.synchronize()
+    counts = read_counts(mods)
+    for name in need:
+        if counts[name] == 0:
+            raise AssertionError(f"{label}: {name} never launched")
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: losses {losses}")
+    return state, ledger, losses, counts
+
+
+def train_qwen(mods):
+    """This slice's path: full-width, full-depth qwen2-0.5B training through
+    the flash kernel. Returns the launch counts of its bf16 run."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    from repro_torch.launch.serve import print_profile
+    from repro_torch.launch.train import build_trainer, make_optimizer
+    from repro_torch.models.blocks import ModelContext
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = get_arch("qwen2_0_5b")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        # 1. bf16 compute, f32 parameters and optimizer state
+        trainer, state = build_trainer(
+            cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, ckpt_dir=str(tmp / "bf16"),
+            checkpoint_every=10_000, compute_dtype=torch.bfloat16,
+            device="cuda")
+        n_params = _param_count(state["params"])
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, ledger, losses, counts = train_run(
+            "train_bf16", mods, trainer, state, TRAIN_STEPS,
+            ("flash_attention",))
+        wall = time.perf_counter() - t0
+        want = 2 * cfg.n_layers * TRAIN_STEPS  # forward + recompute
+        if counts["flash_attention"] != want:
+            raise AssertionError(f"flash launches {counts} != {want}")
+        hist = trainer.metrics.histogram("train_step_s")
+        times = sorted(r.duration_s for r in trainer.records)
+        p50, p95 = hist.quantile(0.5), hist.quantile(0.95)
+        steady = times[len(times) // 2]
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        mfu = 6.0 * n_params * tokens / steady / PEAK_FLOPS["bfloat16"]
+        log(f"train[qwen2_0_5b bf16]: {cfg.n_layers} layers, {n_params} "
+            f"params, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+            f"{TRAIN_STEPS} steps in {wall:.3f}s; sorted step times "
+            f"{[round(t * 1e3, 1) for t in times]} ms; hist p50="
+            f"{p50 * 1e3:.1f}ms p95={p95 * 1e3:.1f}ms; median step "
+            f"{steady * 1e3:.2f}ms {tokens / steady:.0f} tok/s MFU "
+            f"{100 * mfu:.2f}% (6*N*tokens / step / 989 TFLOP/s); goodput "
+            f"{ledger.goodput:.4f} (bootstrap ckpt "
+            f"{ledger.totals().get('idle', 0.0):.2f}s); losses "
+            f"{[round(x, 4) for x in losses]}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+            f"launches={counts}")
+        # three windows of two more steps under the profiler: device time
+        # over each window's own wall time (timed inside the profiler),
+        # after one unreported step under it (the profiler's first use
+        # adds host time to its window)
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts):
+            state, m = trainer.train_step(
+                state, trainer.pipeline.batch_for_step(TRAIN_STEPS))
+            float(m["loss"])
+        busy, walls = [], []
+        for w in range(3):
+            batches = [trainer.pipeline.batch_for_step(TRAIN_STEPS + 1
+                                                       + 2 * w + i)
+                       for i in range(2)]
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                for b in batches:
+                    state, m = trainer.train_step(state, b)
+                    float(m["loss"])
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            busy.append(print_profile(prof, walls[-1], top=25 if w == 0
+                                      else 0))
+            log(f"  device time by class: {device_classes(prof)}")
+        log(f"train[qwen2_0_5b bf16] device busy in 3 profiled windows of "
+            f"2 steps: {[round(100 * b, 1) for b in busy]} %; window walls "
+            f"{[round(x, 4) for x in walls]} s against 2 x the unprofiled "
+            f"median step {2 * steady:.4f} s")
+        del trainer, state
+        torch.cuda.empty_cache()
+
+        # 2. f32, TF32 off: 3 steps through the kernel vs the plain path,
+        # each the train step build_trainer makes, from the same params
+        runs = {}
+        opt = make_optimizer("adamw", total_steps=10_000)
+        pipe = DataPipeline(DataConfig(global_batch=2, seq_len=TRAIN_SEQ,
+                                       vocab_size=cfg.vocab_size), cfg)
+        for impl in ("cuda", "ref"):
+            ctx = ModelContext(compute_dtype=torch.float32, q_chunk=2048,
+                               attn_impl=impl, device="cuda")
+            step = make_train_step(cfg, ctx, opt)
+            state = init_train_state(0, cfg, opt, device="cuda")
+            reset_counts(mods)
+            out = []
+            for i in range(3):
+                state, m = step(state, pipe.batch_for_step(i))
+                out.append((float(m["loss"]), float(m["grad_norm"])))
+            c = read_counts(mods)["flash_attention"]
+            if (c > 0) != (impl == "cuda"):
+                raise AssertionError(f"f32 {impl}: flash launches {c}")
+            runs[impl] = out
+            del state
+            torch.cuda.empty_cache()
+        for (lk, gk), (lr, gr) in zip(runs["cuda"], runs["ref"]):
+            if abs(lk - lr) > 1e-4 * abs(lr) or abs(gk - gr) > 1e-3 * gr:
+                raise AssertionError(f"f32 kernel vs plain: {runs}")
+        log(f"train[f32 kernel vs plain, batch 2 x {TRAIN_SEQ}]: (loss, "
+            f"grad_norm) kernel {runs['cuda']} plain {runs['ref']}")
+
+        # 3. failure + restore + replay == uninterrupted, bit for bit
+        cfg2 = dataclasses.replace(cfg, n_layers=2)
+        res = {}
+        for label, failures in (("clean", None), ("failure", {5: 3})):
+            trainer, state = build_trainer(
+                cfg2, batch=2, seq=512, ckpt_dir=str(tmp / label),
+                checkpoint_every=2, failures=failures, device="cuda")
+            _, ledger, losses, c = train_run(
+                f"train_f32_{label}", mods, trainer, state, 7,
+                ("flash_attention",))
+            res[label] = (losses, ledger, trainer.replay_summary())
+            del trainer, state
+            torch.cuda.empty_cache()
+        (l1, led1, _), (l2, led2, rs) = res["clean"], res["failure"]
+        if l1 != l2 or rs["replayed_steps"] == 0:
+            raise AssertionError(f"replay: {l1} vs {l2}, {rs}")
+        log(f"train[f32 failure at step 5, ckpt every 2, 2 layers]: losses "
+            f"bit-identical to the uninterrupted run {l2}; {rs}; goodput "
+            f"{led2.goodput:.4f} vs {led1.goodput:.4f}; ledger "
+            f"{led2.structure()}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -573,6 +880,10 @@ def _leaves(tree):
 
 
 def main() -> int:
+    import os
+    # a fixed cuBLAS workspace, before cuBLAS starts: the train phase's
+    # deterministic mode needs it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -584,8 +895,9 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as kern
+    from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import moe_gemm
-    mods = (kern, moe_gemm)
+    mods = (kern, moe_gemm, flash)
 
     # f32 comparisons run in full f32 (matmul and cuDNN)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -666,6 +978,18 @@ def main() -> int:
             f"bound_ms={v['bound_ms']:.4f} ({v['bound_by']}) "
             f"bytes={v['bytes']:.4g} design_weight_bytes="
             f"{v['design_weight_bytes']:.4g}")
+    flashes = [flash_case(dt, **kw)
+               for dt in ("bf16", "f32")
+               for kw in ({}, {"window": 512}, {"causal": False},
+                          {"bh": 12, "s": 128, "d": 8})]
+    for v in flashes:
+        log(f"kernel flash_attention {v['dtype']} bh={v['bh']} s={v['s']} "
+            f"d={v['d']} causal={v['causal']} window={v['window']}: "
+            f"max_abs_err={v['max_abs_err']:.3e} row_steps={v['row_steps']} "
+            f"planted_fault(window-1, window+1)={v['planted_fault']} "
+            f"ms={v['ms']:.4f} "
+            f"plain_ms={v['plain_ms']:.4f} library_ms={v['library_ms']:.4f} "
+            f"bound_ms={v['bound_ms']:.4f} ({v['bound_by']})")
     log(f"kernels phase done at {time.perf_counter() - t_start:.1f}s")
 
     # 4-5. the serving paths, each with the counts read around its runs
@@ -673,15 +997,27 @@ def main() -> int:
     log(f"qwen phase done at {time.perf_counter() - t_start:.1f}s")
     counts[f"mixtral_8x22b_{MIXTRAL_LAYERS}l"] = serve_mixtral(mods)
     log(f"mixtral phase done at {time.perf_counter() - t_start:.1f}s")
-    main_path = counts[f"mixtral_8x22b_{MIXTRAL_LAYERS}l"]
+    counts["qwen2_0_5b_train"] = train_qwen(mods)
+    log(f"train phase done at {time.perf_counter() - t_start:.1f}s")
+    serve_path = counts[f"mixtral_8x22b_{MIXTRAL_LAYERS}l"]
 
-    # one line for every kernel: launches on this slice's main path (the
-    # Mixtral bf16 run), a main-path representative (paged: bf16 pages at
-    # Mixtral's shapes, decode and the span at T=128; grouped: bf16, a
-    # 4-token decode step's up projection), and every variant measured
+    # one line for every kernel: launches on the path that runs it (flash:
+    # the bf16 training run; paged and grouped: the Mixtral bf16 serve), a
+    # representative at that path's shapes (flash: bf16 causal at the
+    # training shape; paged: bf16 pages at Mixtral's shapes, decode and the
+    # span at T=128; grouped: bf16, a 4-token decode step's up projection),
+    # and every variant measured
     kernels = []
     for kname, replaces in KERNELS.items():
-        if kname == "grouped_matmul":
+        main_path = serve_path
+        if kname == "flash_attention":
+            main_path = counts["qwen2_0_5b_train"]
+            mine = flashes
+            rep = flashes[0]
+            keys = ("dtype", "bh", "s", "d", "causal", "window",
+                    "max_abs_err", "row_steps", "planted_fault", "ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by")
+        elif kname == "grouped_matmul":
             mine = gemms
             rep = [v for v in mine if v["x"] == "bf16" and v["w"] == "bf16"
                    and v["t"] == 4 and v["d"] == mix_d][0]

@@ -1,0 +1,2 @@
+"""Framework-free copies of the reference's resilience accounting:
+``core/goodput.py``, ``core/topology.py`` and ``core/ocs.py``."""

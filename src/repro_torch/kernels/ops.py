@@ -1,11 +1,12 @@
 """Public kernel entry points with an implementation switch
-(``repro/kernels/ops.py`` without the mesh branches): paged attention
-and the m-grouped MoE GEMM.
+(``repro/kernels/ops.py`` without the mesh branches): flash attention,
+paged attention and the m-grouped MoE GEMM.
 
 ``impl="cuda"`` launches the hand-written Hopper kernel and needs CUDA
-tensors; ``impl="ref"`` runs the plain-torch oracle (gather the pages,
-then attend; one f32 product per expert) on any device. Model code picks
-the impl through ``ModelContext.attn_impl`` (and ``moe_impl``).
+tensors; ``impl="ref"`` runs the plain-torch oracle (the full softmax;
+gather the pages, then attend; one f32 product per expert) on any device.
+Model code picks the impl through ``ModelContext.attn_impl`` (and
+``moe_impl``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import decode_attention as _kernels
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import moe_gemm as _moe_gemm
 from repro_torch.kernels import ref as _ref
 
@@ -27,6 +29,17 @@ def _cuda_only(q: torch.Tensor, impl: str) -> None:
     if impl == "cuda" and not q.is_cuda:
         raise ValueError("impl='cuda' needs CUDA tensors; use impl='ref' "
                          "on the CPU")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    impl: str = "cuda", causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """(BH, S, D) in/out: causal, windowed or bidirectional attention."""
+    _cuda_only(q, impl)
+    if impl == "ref":
+        return _ref.flash_attention_ref(q, k, v, causal=causal,
+                                        window=window)
+    return _flash.flash_attention(q, k, v, causal=causal, window=window)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,

@@ -1,9 +1,10 @@
-"""Plain-torch twins of the paged-attention and grouped-GEMM oracles in
-``repro/kernels/ref.py`` (the correctness contract of the CUDA kernels).
+"""Plain-torch twins of the flash-attention, paged-attention and
+grouped-GEMM oracles in ``repro/kernels/ref.py`` (the correctness
+contract of the CUDA kernels).
 
-They materialize what the kernels never do: each request's contiguous
-KV view, gathered (and dequantized) from the page pool, and each expert's
-weights in f32.
+They materialize what the kernels never do: the (S, S) score matrix, each
+request's contiguous KV view, gathered (and dequantized) from the page
+pool, and each expert's weights in f32.
 """
 
 from __future__ import annotations
@@ -13,6 +14,25 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """q, k, v: (BH, S, D). The full (S, S) softmax in fp32."""
+    s, d = q.shape[1], q.shape[2]
+    dev = q.device
+    scores = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * (d ** -0.5)
+    qpos = torch.arange(s, device=dev)[:, None]
+    kpos = torch.arange(s, device=dev)[None, :]
+    allowed = torch.ones((s, s), dtype=torch.bool, device=dev)
+    if causal:
+        allowed &= qpos >= kpos
+    if window is not None:
+        allowed &= (qpos - kpos) < window
+    scores = torch.where(allowed, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", probs, v.float()).to(q.dtype)
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,

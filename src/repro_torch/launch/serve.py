@@ -10,8 +10,8 @@ Two modes, as ``repro.launch.serve``:
 Weights are random, made from ``--seed`` on the device. Compute is f32, as
 in the reference driver, unless ``--dtype bfloat16``. The device is the card
 unless ``--device cpu``. ``--profile`` runs the serve under
-``torch.profiler`` and prints the device-busy share of the wall time and
-the operations that took the most device time.
+``torch.profiler`` and prints the device-busy share of that run's wall
+time and the operations that took the most device time.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b \
       --smoke --trace 4 --device cpu
@@ -92,11 +92,13 @@ def _profiler(device: torch.device):
     return torch.profiler.profile(activities=acts)
 
 
-def print_profile(prof, wall_s: float, top: int = 12) -> None:
-    """Device time of a profiled run against the wall time of the same
-    work unprofiled: the device-busy share, then the kernels that took
-    the most device time. Only device-side events count (kernels and
-    copies), so an op and the kernels it launched are not added twice."""
+def print_profile(prof, wall_s: float, top: int = 12) -> float:
+    """Device time of a profiled run against that run's own wall time
+    (``wall_s``, timed inside the profiler from the first launch to a
+    final sync): the device-busy share, then the kernels that took the
+    most device time. Only device-side events count (kernels and copies),
+    so an op and the kernels it launched are not added twice. Returns the
+    busy share."""
     rows = []
     for e in prof.key_averages():
         if "CUDA" not in str(getattr(e, "device_type", "")):
@@ -107,11 +109,12 @@ def print_profile(prof, wall_s: float, top: int = 12) -> None:
             rows.append((us, e.count, e.key))
     rows.sort(reverse=True)
     busy_s = sum(us for us, _, _ in rows) / 1e6
-    print(f"profile: wall {wall_s:.3f}s (unprofiled) device busy "
+    print(f"profile: wall {wall_s:.3f}s (profiled) device busy "
           f"{busy_s:.3f}s ({100 * busy_s / wall_s:.1f}%), "
           f"{sum(c for _, c, _ in rows)} device events")
     for us, count, key in rows[:top]:
         print(f"  {us / 1e3:10.3f} ms {count:7d}x  {key[:90]}")
+    return busy_s / wall_s
 
 
 def _sync(device: torch.device) -> None:
@@ -201,9 +204,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         wall = time.perf_counter() - t0
         if args.profile:
             with _profiler(device) as prof:
+                t1 = time.perf_counter()
                 make_engine().run(params, trace(), generator=gen)
                 _sync(device)
-            print_profile(prof, wall)
+                prof_wall = time.perf_counter() - t1
+            print_profile(prof, prof_wall)
         toks = sum(len(v) for v in out.values())
         s = engine.scheduler
         print(f"[{where}] {args.trace} requests, {toks} tokens in "

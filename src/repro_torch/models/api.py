@@ -1,5 +1,5 @@
-"""Family-agnostic model API of the port (``repro.models.api``): the
-paged-serving subset."""
+"""Family-agnostic model API of the port (``repro.models.api``): specs,
+the training loss and paged serving of decoder-only models."""
 
 from __future__ import annotations
 
@@ -15,6 +15,13 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models are not ported yet")
     return lm.lm_specs(cfg)
+
+
+def loss_fn(params, batch, cfg: ModelConfig, ctx: ModelContext):
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder models are not ported yet")
+    return lm.lm_loss(params, batch, cfg, ctx)
 
 
 def supports_paged_decode(cfg: ModelConfig) -> bool:

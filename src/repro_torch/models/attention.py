@@ -1,10 +1,24 @@
-"""Decode attention against gathered caches (``repro.models.attention``).
+"""GQA attention (``repro.models.attention``): training/prefill over the
+full sequence, and decode against gathered caches.
 
-This is the gather path the reference engine runs by default
+``full_attention`` has two routes: the flash kernel (``impl="cuda"``,
+at any sequence length; the reference's Pallas kernel needed
+``S % 128 == 0``, the CUDA kernel does not) or the q-chunked plain path
+(``impl="ref"``), whose score matrix never exceeds (chunk x S) per head.
+The kernel route is ``_FlashAttention``: its forward is
+``kernels.ops.flash_attention``, its backward the gradient of the
+q-chunked plain path at the same q, k, v, which is the gradient the
+reference trainer takes (the TPU kernel has no backward; the reference
+trains through the plain path).
+
+Decode is the gather path the reference engine runs by default
 (``attn_impl="xla"``): the paged pool is first materialized into a
 contiguous per-request view, then attended in plain torch. It is the
 ``attn_impl="ref"`` route of the port and the parity contract of the
 CUDA route (kernels/ops.py).
+
+Masks are computed from positions: causal, sliding-window, bidirectional
+and decode (cache validity).
 """
 
 from __future__ import annotations
@@ -13,10 +27,24 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ops import apply_rope
 
 NEG_INF = -1e30
+
+
+def _positions(batch_shape: Tuple[int, ...], seq: int,
+               device: torch.device) -> torch.Tensor:
+    return torch.arange(seq, device=device).expand(*batch_shape, seq)
+
+
+def fit_chunk(seq: int, chunk: int) -> int:
+    """Largest divisor of ``seq`` that is <= ``chunk``."""
+    c = max(1, min(chunk, seq))
+    while seq % c:
+        c -= 1
+    return c
 
 
 def apply_positional(q: torch.Tensor, k: torch.Tensor, cfg: ModelConfig,
@@ -30,12 +58,26 @@ def apply_positional(q: torch.Tensor, k: torch.Tensor, cfg: ModelConfig,
     return q, k  # learned / none: no rotary positions
 
 
+def _mask_bias(qpos: torch.Tensor, kpos: torch.Tensor, attn_type: str,
+               window: Optional[int]) -> torch.Tensor:
+    """(..., Q, K) additive bias in fp32. qpos: (..., Q), kpos: (..., K)."""
+    diff = qpos[..., :, None] - kpos[..., None, :]
+    if attn_type == "bidirectional":
+        allowed = torch.ones_like(diff, dtype=torch.bool)
+    else:
+        allowed = diff >= 0
+    if window is not None:
+        allowed &= diff < window
+    return torch.where(allowed, 0.0, NEG_INF).float()
+
+
 def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
     """(B,S,KV,D) -> (B,S,H,D): head h reads KV head h // (H // KV)."""
-    kv = k.shape[2]
+    b, s, kv, d = k.shape
     if kv == n_heads:
         return k
-    return k.repeat_interleave(n_heads // kv, dim=2)
+    return k[:, :, :, None].expand(b, s, kv, n_heads // kv, d).reshape(
+        b, s, n_heads, d)
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -52,6 +94,77 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqs,bshd->bqhd", probs.to(v.dtype), v)
     return out.to(q.dtype)
+
+
+def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       attn_type: str, window: Optional[int],
+                       q_chunk: int) -> torch.Tensor:
+    """The plain route: query chunks of ``q_chunk`` rows (the largest
+    divisor of S that fits) each attend over every key."""
+    b, s = q.shape[:2]
+    dev = q.device
+    kpos = _positions((b,), k.shape[1], dev)
+    if s % q_chunk:
+        q_chunk = fit_chunk(s, q_chunk)
+    if s <= q_chunk:
+        bias = _mask_bias(_positions((b,), s, dev), kpos, attn_type, window)
+        return _sdpa(q, k, v, bias)
+    outs = []
+    for start in range(0, s, q_chunk):
+        qpos = start + _positions((b,), q_chunk, dev)
+        bias = _mask_bias(qpos, kpos, attn_type, window)
+        outs.append(_sdpa(q[:, start:start + q_chunk], k, v, bias))
+    return torch.cat(outs, dim=1)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward through ``kops.flash_attention`` (the kernel for
+    ``impl="cuda"``); backward = the gradient of ``_chunked_attention`` at
+    the saved q, k, v (recomputed in plain torch), since the TPU kernel has
+    no backward of its own. The CPU tests drive it with ``impl="ref"``,
+    the oracle standing in for the kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, attn_type, window, q_chunk, impl):
+        b, s, h, d = q.shape
+
+        def fold(x):  # (B,S,H,D) -> (B*H,S,D), contiguous
+            return _expand_kv(x, h).transpose(1, 2).contiguous().view(
+                b * h, s, d)
+
+        out = kops.flash_attention(
+            fold(q), fold(k), fold(v), impl=impl,
+            causal=attn_type != "bidirectional", window=window)
+        ctx.save_for_backward(q, k, v)
+        ctx.attn = (attn_type, window, q_chunk)
+        return out.reshape(b, h, s, d).transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            out = _chunked_attention(*leaves, *ctx.attn)
+        dq, dk, dv = torch.autograd.grad(out, leaves, grad)
+        return dq, dk, dv, None, None, None, None
+
+
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   cfg: ModelConfig, *, q_chunk: int = 2048,
+                   attn_type: Optional[str] = None,
+                   window: Optional[int] = None,
+                   impl: str = "ref") -> torch.Tensor:
+    """Training/prefill attention. q: (B,S,H,D); k,v: (B,S,KV,D).
+
+    impl="cuda" routes through the flash kernel (CUDA tensors only): KV
+    heads expand to full heads, heads fold into the batch dimension.
+    impl="ref" runs the q-chunked plain path."""
+    atype = attn_type or cfg.attn_type
+    win = window if window is not None else cfg.sliding_window
+    if impl == "ref":
+        return _chunked_attention(q, k, v, atype, win, q_chunk)
+    # kops.flash_attention rejects an unknown impl and CPU tensors
+    return _FlashAttention.apply(q, k, v, atype, win, q_chunk, impl)
 
 
 def decode_span_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -1,11 +1,12 @@
-"""Sublayer specs and the paged decode datapath (``repro.models.blocks``).
+"""Sublayer specs, the training forward and the paged decode datapath
+(``repro.models.blocks``).
 
 A *block* is ``block_len`` sublayers; parameters of all blocks are
 stacked on a leading ``n_blocks`` axis, and lm.py runs a Python loop over
-that axis where the reference runs ``lax.scan``. Only what paged serving
-of a pure-attention decoder needs is ported: attention + dense-FFN or MoE
-specs, the paged pool layout, int8 page quantization, and one-token /
-T-token decode against the pool.
+that axis where the reference runs ``lax.scan``. Only pure-attention
+decoders are ported: attention + dense-FFN or MoE specs, the full-
+sequence forward of the training loss, the paged pool layout, int8 page
+quantization, and one-token / T-token decode against the pool.
 
 Pages are a shared pool per layer: k/v of shape (num_pages, page_size, KV,
 D), plus (num_pages, page_size, KV) bf16 scale pages when the cache dtype
@@ -24,7 +25,8 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models.attention import (apply_positional, decode_attention,
-                                          decode_span_attention)
+                                          decode_span_attention,
+                                          full_attention)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import (dense_ffn, dense_ffn_specs, moe_ffn,
                                     moe_param_specs)
@@ -45,12 +47,14 @@ class ModelContext:
 
     ``device`` defaults to the card (raising when there is none);
     ``attn_impl`` defaults to "cuda" on a CUDA device and "ref" (the
-    gather path of models/attention.py) on the CPU. ``moe_dispatch`` is
+    gather / q-chunked paths of models/attention.py) on the CPU;
+    ``q_chunk`` bounds the plain path's query chunk. ``moe_dispatch`` is
     the serving MoE dispatch: "grouped" (sort-based dropless through the
     grouped GEMM; the default) or "capacity" (the dropless capacity
     buffer); ``moe_impl=None`` derives the GEMM impl from attn_impl."""
 
     def __init__(self, *, compute_dtype: torch.dtype = torch.bfloat16,
+                 q_chunk: int = 2048,
                  attn_impl: Optional[str] = None,
                  decode_cache_dtype: Optional[torch.dtype] = None,
                  device: DeviceLike = None,
@@ -65,6 +69,7 @@ class ModelContext:
         if attn_impl == "cuda" and self.device.type != "cuda":
             raise ValueError("attn_impl='cuda' needs a CUDA device")
         self.compute_dtype = compute_dtype
+        self.q_chunk = q_chunk
         self.attn_impl = attn_impl
         self.decode_cache_dtype = decode_cache_dtype  # None -> compute
         if moe_dispatch not in ("grouped", "capacity"):
@@ -149,6 +154,52 @@ def _project_qkv(p: Dict[str, Tensor], x: Tensor, cfg: ModelConfig,
         k = k + p["bk"].to(dtype)
         v = v + p["bv"].to(dtype)
     return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# Forward (training / no cache)
+# ---------------------------------------------------------------------------
+
+
+def attn_forward(p: Dict[str, Tensor], x: Tensor, cfg: ModelConfig,
+                 ctx: ModelContext, attn_type: Optional[str] = None
+                 ) -> Tensor:
+    b, s, _ = x.shape
+    dtype = ctx.compute_dtype
+    q, k, v = _project_qkv(p, x, cfg, dtype)
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k = apply_positional(q, k, cfg, positions)
+    out = full_attention(q, k, v, cfg, q_chunk=ctx.q_chunk,
+                         attn_type=attn_type, impl=ctx.attn_impl)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dtype))
+
+
+def sublayer_forward(p: Dict[str, Any], x: Tensor, cfg: ModelConfig,
+                     ctx: ModelContext, idx: int
+                     ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """norm -> attention -> residual, norm -> MLP/MoE -> residual. MoE
+    sublayers run the capacity dispatch with its aux losses, as the
+    reference's training forward does."""
+    dtype = ctx.compute_dtype
+    aux: Dict[str, Tensor] = {}
+    x = x + attn_forward(p["core"], rms_norm(x, p["ln1"], cfg.norm_eps),
+                         cfg, ctx)
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if cfg.sublayer_has_moe(idx):
+        mlp, aux = moe_ffn(p["mlp"], h, cfg, dtype)
+    else:
+        mlp = dense_ffn(p["mlp"], h, cfg, dtype)
+    return x + mlp, aux
+
+
+def block_forward(block_params: Dict[str, Any], x: Tensor, cfg: ModelConfig,
+                  ctx: ModelContext) -> Tuple[Tensor, Dict[str, Tensor]]:
+    aux_total: Dict[str, Tensor] = {}
+    for i in range(cfg.block_len):
+        x, aux = sublayer_forward(block_params[f"sl{i}"], x, cfg, ctx, i)
+        for key, val in aux.items():
+            aux_total[key] = aux_total.get(key, 0.0) + val
+    return x, aux_total
 
 
 # ---------------------------------------------------------------------------

@@ -1,25 +1,34 @@
-"""Decoder-only LM: specs and paged serving (``repro.models.lm``).
+"""Decoder-only LM: specs, train loss and paged serving
+(``repro.models.lm``).
 
 A Python loop over the stacked layer axis replaces the reference's
 ``lax.scan``; each iteration takes views of one layer's parameters and
-page pools.
+page pools. The training loss wraps each block in
+``torch.utils.checkpoint`` where the reference wraps the scan body in
+``jax.checkpoint``: a block's activations are recomputed in the backward
+pass instead of kept.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.blocks import (ModelContext, TensorSpec,
                                        block_decode_paged,
-                                       block_decode_span_paged, block_specs,
+                                       block_decode_span_paged,
+                                       block_forward, block_specs,
                                        paged_block_cache_spec, stack_specs)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.ops import embed_lookup, rms_norm
+from repro_torch.models.ops import (embed_lookup, rms_norm,
+                                    softmax_cross_entropy)
 from repro_torch.models.params import ParamSpec, ones_init, tree_index
 
 Tensor = torch.Tensor
+
+AUX_WEIGHTS = {"load_balance": 0.01, "router_z": 0.001}
 
 
 def lm_specs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -41,6 +50,53 @@ def _logits(params: Dict[str, Any], x: Tensor, cfg: ModelConfig,
     else:
         head = params["lm_head"].to(ctx.compute_dtype)
     return x @ head
+
+
+def _unstack(tree: Any, n: int) -> List[Any]:
+    """Per-layer views of a stacked tree: one ``unbind`` per leaf, whose
+    backward stacks the layers' gradients in a single copy (indexing
+    layer by layer would add a full stacked-size zero tensor per layer)."""
+    if isinstance(tree, dict):
+        subs = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: subs[k][i] for k in subs} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def _block_body(bp: Dict[str, Any], x: Tensor, cfg: ModelConfig,
+                ctx: ModelContext) -> Tuple[Tensor, Dict[str, Tensor]]:
+    x, aux = block_forward(bp, x, cfg, ctx)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, {k: aux[k].float() if k in aux else zero for k in AUX_WEIGHTS}
+
+
+def lm_loss(params: Dict[str, Any], batch: Dict[str, Tensor],
+            cfg: ModelConfig, ctx: ModelContext
+            ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Token-mean next-token cross entropy plus the weighted MoE aux
+    losses (each the mean over layers; 0 for dense layers). Returns
+    (loss, metrics) with metrics xent, tokens, load_balance, router_z,
+    loss."""
+    if batch.get("positions") is not None:
+        raise NotImplementedError("mrope position rows are not ported yet")
+    x = embed_lookup(params["embed"], batch["tokens"], ctx.compute_dtype)
+    auxs: Dict[str, List[Tensor]] = {k: [] for k in AUX_WEIGHTS}
+    for bp in _unstack(params["blocks"], cfg.n_blocks):
+        x, aux = checkpoint(_block_body, bp, x, cfg, ctx,
+                            use_reentrant=False, preserve_rng_state=False)
+        for k in AUX_WEIGHTS:
+            auxs[k].append(aux[k])
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _logits(params, x, cfg, ctx)
+    loss, count = softmax_cross_entropy(logits, batch["labels"],
+                                        batch.get("loss_mask"))
+    metrics = {"xent": loss, "tokens": count}
+    total = loss
+    for key, w in AUX_WEIGHTS.items():
+        val = torch.stack(auxs[key]).mean()
+        metrics[key] = val
+        total = total + w * val
+    metrics["loss"] = total
+    return total, metrics
 
 
 def _span_logits_slice(x: Tensor, logits_at: Optional[Tensor]) -> Tensor:

@@ -1,8 +1,10 @@
 """Elementary model ops (``repro.models.ops``): norms, activations,
-embeddings and RoPE. Norms compute in fp32 and return the caller's
-dtype, as the reference does."""
+embeddings, RoPE and the training loss. Norms compute in fp32 and return
+the caller's dtype, as the reference does."""
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -55,3 +57,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stable token-mean cross entropy in fp32. Returns (mean_loss,
+    token_count). One fp32 copy of the logits, as the reference makes."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mf = mask.float()
+        nll = nll * mf
+        count = torch.clamp(mf.sum(), min=1.0)
+    else:
+        count = torch.full((), float(nll.numel()), dtype=torch.float32,
+                           device=nll.device)
+    return nll.sum() / count, count

@@ -7,25 +7,45 @@ card; f32 at 1e-4 (summation order differs from the gather oracle), bf16
 at 2e-2 (the plain version rounds the gathered view to bf16). The grouped
 GEMM: f32 within 3 * sqrt(D) * eps32 * max|out| (summation order over the
 contraction; a product of TF32- or bf16-rounded inputs fails it), bf16
-outputs within one bf16 step (2^-7 relative)."""
+outputs within one bf16 step (2^-7 relative). The flash kernel: f32 at
+1e-4, bf16 at 2e-2 (its probabilities round to bf16 at other points than
+the plain version's) and, row by row, within FLASH_ROW_C bf16 steps
+(2^-8) of the row's largest |value| (most rows average many keys to
+small values); its autograd route's gradients equal the plain route's
+exactly (the same plain backward at the same inputs), and the route
+launches the kernel at any sequence length."""
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs.registry import get_smoke
+from repro_torch.configs.registry import get_arch
+from repro_torch.data.pipeline import DataConfig, DataPipeline
 from repro_torch.kernels import decode_attention as kern
+from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import moe_gemm, ref
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch.train import make_optimizer
 from repro_torch.models import api
+from repro_torch.models import attention as attn
 from repro_torch.models.blocks import ModelContext, paged_quantize
 from repro_torch.models.params import init_params
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.scheduler import Request
+from repro_torch.train.step import init_train_state, make_train_step
 
 pytestmark = pytest.mark.gpu
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+FLASH_ROW_C = 4.0  # chip_smoke.py's limit for bf16 flash outputs
+
+
+def _row_steps(got, want):
+    """max |got - want| in bf16 steps (2^-8) of its row's largest |want|."""
+    err = (got.float() - want.float()).abs()
+    scale = want.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+    return float((err / scale).max()) * 2.0 ** 8
 
 
 @pytest.fixture
@@ -264,3 +284,120 @@ def test_decode_chunk_never_waits_for_the_device(cuda, arch, draft_k,
                                                         12), max_new=9)
                      for i in range(4)])
     assert chunks
+
+
+FLASH_MASKS = {"causal": (True, None), "window": (True, 37),
+               "bidirectional": (False, None)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask", sorted(FLASH_MASKS))
+@pytest.mark.parametrize("bh,s,d", [(3, 128, 8), (2, 200, 12), (2, 256, 128),
+                                    (2, 192, 256), (56, 2048, 64)])
+def test_flash_kernel_matches_plain(cuda, dtype, mask, bh, s, d):
+    """Smoke widths (D=8), ragged S and D (scalar loads), D up to 256,
+    and qwen2-0.5B's training shape (4 x 14 heads, S=2048, D=64)."""
+    causal, window = FLASH_MASKS[mask]
+    g = torch.Generator(device="cpu").manual_seed(s + d)
+    q, k, v = (torch.randn((bh, s, d), generator=g).to(dtype).to(cuda)
+               for _ in range(3))
+    before = flash.launches["flash_attention"]
+    got = flash.flash_attention(q, k, v, causal=causal, window=window)
+    assert flash.launches["flash_attention"] == before + 1
+    want = flash.flash_attention_plain(q, k, v, causal=causal,
+                                       window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+    if dtype == torch.bfloat16:
+        assert _row_steps(got, want) <= FLASH_ROW_C
+    again = flash.flash_attention(q, k, v, causal=causal, window=window)
+    assert torch.equal(got, again)  # one summation order: reproducible
+
+
+def test_flash_wrapper_rejects_bad_inputs(cuda):
+    q = torch.randn((2, 128, 64), device=cuda)
+    with pytest.raises(ValueError):
+        flash.flash_attention(q, q.to(torch.bfloat16), q)
+    with pytest.raises(ValueError):
+        flash.flash_attention(q.transpose(1, 2), q, q)
+    with pytest.raises(ValueError):
+        flash.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):
+        flash.flash_attention(q, q, q, window=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("atype,window", [("causal", None), ("causal", 100),
+                                          ("bidirectional", None)])
+def test_kernel_route_grads_equal_plain_route(cuda, dtype, atype, window):
+    """full_attention(impl="cuda") forwards through the kernel; its
+    gradient is the plain route's, computed at the same inputs."""
+    cfg = get_smoke("qwen2_0_5b")
+    g = torch.Generator(device="cpu").manual_seed(3)
+    q = torch.randn((2, 256, 6, 64), generator=g).to(dtype).to(cuda)
+    k, v = (torch.randn((2, 256, 2, 64), generator=g).to(dtype).to(cuda)
+            for _ in range(2))
+    cot = torch.randn(q.shape, generator=g).to(dtype).to(cuda)
+    outs, grads = {}, {}
+    for impl in ("cuda", "ref"):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        flash.reset_launches()
+        out = attn.full_attention(*leaves, cfg, q_chunk=128,
+                                  attn_type=atype, window=window, impl=impl)
+        (out.float() * cot.float()).sum().backward()
+        assert flash.launches["flash_attention"] == (impl == "cuda")
+        outs[impl], grads[impl] = out.detach(), [x.grad for x in leaves]
+    tol = TOL[dtype]
+    torch.testing.assert_close(outs["cuda"].float(), outs["ref"].float(),
+                               atol=tol, rtol=tol)
+    for a, b in zip(grads["cuda"], grads["ref"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [64, 200])
+def test_kernel_route_launches_at_any_length(cuda, dtype, s):
+    """Lengths that are no multiple of 128 (the train launcher's default
+    --seq 64 among them) still go through the kernel."""
+    cfg = get_smoke("qwen2_0_5b")
+    g = torch.Generator(device="cpu").manual_seed(s)
+    q = torch.randn((2, s, 6, 64), generator=g).to(dtype).to(cuda)
+    k, v = (torch.randn((2, s, 2, 64), generator=g).to(dtype).to(cuda)
+            for _ in range(2))
+    flash.reset_launches()
+    got = attn.full_attention(q, k, v, cfg, impl="cuda")
+    assert flash.launches["flash_attention"] == 1
+    want = attn.full_attention(q, k, v, cfg, impl="ref")
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+def test_full_width_train_steps_never_wait_for_the_device(cuda):
+    """Two steps of full-width, full-depth qwen2-0.5B (bf16 compute)
+    queue all their work without a host sync; the trainer's float(loss)
+    after each step is the only wait, as in the reference. Under
+    activation checkpointing each layer's forward runs twice, so the
+    flash kernel launches 2 * 24 times per step."""
+    cfg = get_arch("qwen2_0_5b")
+    ctx = ModelContext(compute_dtype=torch.bfloat16, device=cuda)
+    opt = make_optimizer("adamw")
+    step = make_train_step(cfg, ctx, opt)
+    state = init_train_state(0, cfg, opt, device=cuda)
+    pipe = DataPipeline(DataConfig(global_batch=1, seq_len=256,
+                                   vocab_size=cfg.vocab_size))
+    losses = []
+    for i in range(2):
+        batch = pipe.batch_for_step(i)
+        flash.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, metrics = step(state, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        losses.append(float(metrics["loss"]))
+        assert flash.launches["flash_attention"] == 2 * cfg.n_layers
+    assert all(np.isfinite(losses)) and int(state["step"]) == 2

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.configs.registry import get_smoke
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models import api
 from repro_torch.models.blocks import ModelContext
 from repro_torch.models.params import init_params
@@ -77,3 +78,22 @@ def test_launcher_serves_a_trace_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "4 requests" in out and "host_syncs=" in out
     assert "prefix_hit_rate=" in out
+
+
+def test_train_launcher_needs_a_card_unless_asked_for_the_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--arch", "qwen2_0_5b", "--smoke",
+                           "--ckpt-dir", str(tmp_path)])
+    assert not os.listdir(tmp_path)
+
+
+def test_train_launcher_trains_a_smoke_trace_on_the_cpu(tmp_path, capsys):
+    launch_train.main(["--arch", "qwen2_0_5b", "--smoke", "--steps", "6",
+                       "--batch", "2", "--seq", "16", "--ckpt-every", "2",
+                       "--fail-at", "3", "--ckpt-dir", str(tmp_path),
+                       "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "trained 6 effective steps" in out
+    assert "replayed=1" in out and "goodput=" in out and "tok/s" in out
