@@ -36,7 +36,19 @@ result line):
                with any host sync an error; then 2 layers in f32 (TF32 off)
                whose greedy tokens through the kernels must equal the plain
                path's, one prompt of 4500 tokens trimming pages;
-  6. train   - full-width, full-depth qwen2-0.5B from seeded random weights
+  6. resilient serve - full-width qwen2-0.5B under the startup self-test,
+               the deterministic fault schedule and SLO admission: BIST on
+               the card (8 matmul-kernel launches, 1 paged-decode launch;
+               it must fail with a corrupted matmul and with a decode that
+               returns zeros); the JAX test's chaos plan at f32 (TF32 off),
+               6 requests (three share a 64-token prefix) with draft_k 0
+               and 2, whose survivors' tokens must equal the fault-free
+               run's; TTFT shedding and speculation dropped under queue
+               pressure, served tokens equal to the run without admission;
+               the chaos run at bf16 for timing (host seconds in CRC
+               verification); fp8 weights; the serve launcher with
+               --bist --chaos --ttft-deadline --spec-off-depth --quantize;
+  7. train   - full-width, full-depth qwen2-0.5B from seeded random weights
                through build_trainer + ResilientTrainer.run at batch
                4 x seq 2048, bf16 compute: step p50/p95, tok/s, MFU, then
                a step under torch.profiler to warm it, then three
@@ -50,6 +62,11 @@ result line):
                2 steps; full width, 2 layers) against an uninterrupted one:
                bit-identical losses, with replayed steps.
 
+The kernels phase also holds the matmul kernel against its plain version
+(f32 and bf16 inputs at the self-test's 128^3, the JAX test shapes, a
+ragged shape and qwen2-0.5B's MLP up projection of a 4096-token prefill),
+each with the kernel run with its last K tile skipped, a planted fault that
+must fail the limit, and torch.matmul's time beside it.
 The kernels phase also holds the flash-attention kernel against its plain
 version at qwen2-0.5B's training shape (4 x 14 heads, S=2048, D=64), bf16
 and f32, causal, windowed (512) and bidirectional, and at smoke widths:
@@ -88,6 +105,7 @@ TOL = {"f32": 1e-4, "bf16": 2e-2, "int8": 2e-2}
 BF16_STEP = 2.0 ** -8
 FLASH_ROW_C = 4.0
 KERNELS = {
+    "matmul": "src/repro/kernels/matmul.py:42",
     "flash_attention": "src/repro/kernels/flash_attention.py:75",
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:330",
     "paged_decode_span_attention":
@@ -95,6 +113,7 @@ KERNELS = {
     "grouped_matmul": "src/repro/kernels/moe_gemm.py:55",
 }
 SOURCES = {
+    "matmul": "src/repro_torch/kernels/csrc/matmul.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "paged_decode_attention":
         "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -346,6 +365,67 @@ def gemm_case(name: str, xdt: str, wdt: str, *, t: int, d: int, f: int,
     }
 
 
+def matmul_case(in_dt: str, out_dt: str, m: int, k: int, n: int,
+                seed: int = 0):
+    """The matmul kernel at one shape: max error against its plain version
+    (f32 out: within 4 * sqrt(K) * eps32 of max |out|, the summation order;
+    bf16 out: one bf16 step of it), the reading of the kernel run with its
+    last K tile skipped, which must fail the limit, times of the kernel,
+    the plain version and torch.matmul, and the bound."""
+    import torch
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}
+    idt, odt = dt[in_dt], dt[out_dt]
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    a = torch.randn((m, k), generator=g, device=dev).to(idt)
+    b = torch.randn((k, n), generator=g, device=dev).to(idt)
+    run = lambda: mm.matmul(a, b, out_dtype=odt)
+    plain = lambda: ref.matmul_ref(a, b, odt)
+    before = mm.launches["matmul"]
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    if mm.launches["matmul"] != before + 1:
+        raise AssertionError("matmul: the wrapper did not count its launch")
+    err = float((got.float() - want.float()).abs().max())
+    big = float(want.float().abs().max())
+    tol = (2 ** -7 * big if odt == torch.bfloat16
+           else 4 * k ** 0.5 * EPS32 * big) + 1e-6
+    if not bool(torch.isfinite(got.float()).all()) or err > tol:
+        raise AssertionError(f"matmul {in_dt}->{out_dt} ({m},{k},{n}): "
+                             f"max_abs_err {err} > {tol}")
+    # a planted fault: the kernel with the last K tile of its sum skipped
+    kt = mm.K_TILE[idt]
+    cut = k - (k % kt or kt)
+    bad = mm.matmul(a[:, :cut].contiguous(), b[:cut].contiguous(),
+                    out_dtype=odt)
+    bad_err = float((bad.float() - want.float()).abs().max())
+    if bad_err <= tol:
+        raise AssertionError(f"matmul {in_dt}->{out_dt} ({m},{k},{n}): "
+                             f"the last K tile skipped passes ({bad_err})")
+    # torch.matmul in the inputs' dtype (TF32 off): the library's time
+    library = lambda: torch.matmul(a, b)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    ms = timed_ms(run, flush)
+    plain_ms = timed_ms(plain, flush)
+    library_ms = timed_ms(library, flush)
+    flops = 2.0 * m * n * k
+    nbytes = (m * k + k * n) * a.element_size() + m * n * got.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS["float32" if in_dt == "f32" else "bfloat16"]
+    return {
+        "name": "matmul", "in": in_dt, "out": out_dt, "m": m, "k": k,
+        "n": n, "max_abs_err": err, "tol": tol, "max_abs_out": big,
+        "planted_fault": bad_err, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "flops": flops,
+    }
+
+
 def row_steps(got, want) -> float:
     """max |got - want| in bf16 steps of its row's largest |want|."""
     err = (got.float() - want.float()).abs()
@@ -476,7 +556,9 @@ def read_counts(mods):
 
 def serve_run(label, mods, engine, params, reqs, vocab, need):
     """One run of a serving path with every launch counter set to 0 just
-    before it and read just after."""
+    before it and read just after. Every request is served, unless the
+    engine's fault schedule failed it or its admission policy shed it;
+    the served tokens must be whole and in range."""
     import torch
     from repro_torch.launch.serve import slo_line
     reset_counts(mods)
@@ -486,21 +568,27 @@ def serve_run(label, mods, engine, params, reqs, vocab, need):
     wall = time.perf_counter() - t0
     counts = read_counts(mods)
     toks = sum(len(v) for v in out.values())
+    s = engine.scheduler
+    lost = [r.rid for r in s.failed] + [r.rid for r in s.shed]
+    if sorted(list(out) + lost) != sorted(r.rid for r in reqs):
+        raise AssertionError(f"{label}: served {sorted(out)}, lost {lost}")
     for r in reqs:
-        got = out[r.rid]
-        if len(got) != r.max_new or got.min() < 0 or got.max() >= vocab:
+        got = out.get(r.rid)
+        if got is not None and (len(got) != r.max_new or got.min() < 0
+                                or got.max() >= vocab):
             raise AssertionError(f"{label}: request {r.rid} gave {got}")
     for name in need:
         if counts[name] == 0:
             raise AssertionError(f"{label}: {name} never launched")
-    log(f"serve[{label}]: {len(reqs)} requests {toks} tokens "
+    faults = {k: v for k, v in engine.fault_stats.items() if v}
+    log(f"serve[{label}]: {len(out)} of {len(reqs)} requests {toks} tokens "
         f"{wall:.3f}s {toks / wall:.1f} tok/s "
         f"host_syncs={engine.counters['host_syncs']} "
         f"chunks={engine.counters['chunks']} "
         f"pages_trimmed={engine.counters['pages_trimmed']} "
         f"prefix_hit_rate={engine.prefix_hit_rate:.3f} "
         f"acceptance_length={engine.acceptance_length:.2f} "
-        f"launches={counts}")
+        f"stats={s.stats} faults={faults} launches={counts}")
     log(f"  {slo_line(engine)}")
     return out, counts, wall
 
@@ -687,6 +775,201 @@ def serve_mixtral(mods):
     del params
     torch.cuda.empty_cache()
     return counts
+
+
+# ------------------------------------------------------- resilient serve
+
+# the chaos plan of the JAX package's fault tests (tests/test_serve_faults.py)
+CHAOS = dict(seed=7, worker_fail_rate=0.25, page_flip_rate=0.25,
+             transfer_drop_rate=0.2, straggler_rate=0.2)
+
+
+def resilient_requests(vocab: int, *, late: bool = False):
+    """6 requests of 60-200 prompt tokens, the first three sharing a
+    64-token prefix, 16 new tokens each. Arrivals every 8 steps (one
+    chunk), so the run spans the plan's page flips; with ``late``, four
+    at step 0 and two at step 1, behind a full batch."""
+    import numpy as np
+    from repro_torch.serve.scheduler import Request
+    rng = np.random.default_rng(1)
+    shared = rng.integers(0, vocab, 64)
+    reqs = []
+    for rid in range(6):
+        if rid < 3:
+            prompt = np.concatenate(
+                [shared, rng.integers(0, vocab, int(rng.integers(1, 137)))])
+        else:
+            prompt = rng.integers(0, vocab, int(rng.integers(60, 201)))
+        arrival = (0 if rid < 4 else 1) if late else 8 * rid
+        reqs.append(Request(rid=rid, prompt=prompt, max_new=16,
+                            arrival=arrival))
+    return reqs
+
+
+def _same_tokens(label, got, want) -> None:
+    for rid, toks in got.items():
+        if not (toks == want[rid]).all():
+            raise AssertionError(f"{label} request {rid}: {toks} != "
+                                 f"fault-free {want[rid]}")
+
+
+def serve_resilient(mods):
+    """This slice's path: the startup self-test through the matmul and
+    paged-decode kernels, then full-width qwen2-0.5B served under the
+    fault schedule and admission. Returns the launch counts of the BIST
+    and of the f32 chaos run."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.sdc import FaultModel, faulty_wrap
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import api
+    from repro_torch.models.blocks import ModelContext
+    from repro_torch.models.params import init_params, tree_items
+    from repro_torch.serve.admission import (AdmissionController,
+                                             AdmissionPolicy)
+    from repro_torch.serve.engine import ServeEngine, quantize_weights
+    from repro_torch.serve.faults import (FaultInjector, FaultPlan,
+                                          startup_bist)
+
+    # 1. BIST on the card, then the two planted faults
+    walls = []
+    for _ in range(2):  # the second run is warm
+        reset_counts(mods)
+        t0 = time.perf_counter()
+        res = startup_bist()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        bist_counts = read_counts(mods)
+        if not res.passed or bist_counts["matmul"] != 8 \
+                or bist_counts["paged_decode_attention"] != 1:
+            raise AssertionError(f"bist: {res} launches {bist_counts}")
+    bad_mm = startup_bist(matmul_fn=faulty_wrap(
+        lambda a, b: mm.matmul(a, b),
+        FaultModel(rate=1.0, magnitude=0.5, seed=1)))
+    bad_pd = startup_bist(decode_fn=lambda q, *a: torch.zeros_like(q))
+    if bad_mm.passed or bad_mm.matmul_report.passed \
+            or bad_pd.passed or bad_pd.paged_decode_ok:
+        raise AssertionError(f"bist missed a planted fault: {bad_mm} "
+                             f"{bad_pd}")
+    log(f"bist: PASS matmul max_err={res.matmul_report.max_abs_err:.3e} "
+        f"paged_decode max_err={res.paged_decode_max_err:.3e} launches="
+        f"{bist_counts}; wall {walls[0] * 1e3:.2f} ms (first) "
+        f"{walls[1] * 1e3:.2f} ms (warm); corrupted matmul -> FAIL "
+        f"(pattern {bad_mm.matmul_report.first_failing_pattern}, err "
+        f"{bad_mm.matmul_report.max_abs_err:.3e}); zero decode -> FAIL "
+        f"(err {bad_pd.paged_decode_max_err:.3e})")
+
+    cfg = get_arch("qwen2_0_5b")
+    reqs = lambda **kw: resilient_requests(cfg.vocab_size, **kw)
+    window = max(len(r.prompt) + r.max_new for r in reqs())
+    window = -(-window // 16) * 16
+    paged = ("paged_decode_attention", "paged_decode_span_attention")
+
+    def engine(dtype, draft_k, faults=None, admission=None):
+        ctx = ModelContext(compute_dtype=dtype, device="cuda")
+        return ServeEngine(cfg, ctx, window=window, max_batch=4, chunk=8,
+                           page_size=16, draft_k=draft_k, prefix_cache=True,
+                           faults=faults, admission=admission)
+
+    # 2. chaos at f32 (TF32 off): survivors keep the fault-free tokens
+    params = init_params(api.model_specs(cfg), seed=0, device="cuda")
+    chaos_counts = None
+    for draft_k in (0, 2):
+        need = paged if draft_k == 0 else paged[1:]
+        base, _, _ = serve_run(f"f32_fault_free_k{draft_k}", mods,
+                                   engine(torch.float32, draft_k), params,
+                                   reqs(), cfg.vocab_size, need)
+        eng = engine(torch.float32, draft_k,
+                     faults=FaultInjector(FaultPlan(**CHAOS)))
+        out, c, _ = serve_run(f"f32_chaos_k{draft_k}", mods, eng,
+                                  params, reqs(), cfg.vocab_size, need)
+        chaos_counts = chaos_counts or c
+        fs = eng.fault_stats
+        if fs["fault_page_corruptions"] == 0 or fs["fault_detections"] == 0:
+            raise AssertionError(f"f32_chaos_k{draft_k}: no fault landed "
+                                 f"{dict(fs.items())}")
+        if not eng.kv._quarantined \
+                or eng.kv._quarantined & set(eng.kv._index):
+            raise AssertionError(f"f32_chaos_k{draft_k}: quarantine "
+                                 f"{eng.kv._quarantined}")
+        _same_tokens(f"f32_chaos_k{draft_k}", out, base)
+        log(f"serve[f32_chaos_k{draft_k}]: {len(out)} survivors' tokens "
+            f"equal the fault-free run's; quarantined hashes "
+            f"{len(eng.kv._quarantined)}, none in the prefix index")
+
+    # 3. admission: TTFT shedding of two late arrivals behind a full
+    # batch, speculation dropped while anything waits
+    base, _, _ = serve_run("f32_no_admission", mods,
+                               engine(torch.float32, 2), params,
+                               reqs(late=True), cfg.vocab_size, paged[1:])
+    eng = engine(torch.float32, 2, admission=AdmissionController(
+        AdmissionPolicy(ttft_deadline_steps=16, spec_off_queue_depth=0)))
+    out, _, _ = serve_run("f32_admission", mods, eng, params,
+                              reqs(late=True), cfg.vocab_size, paged[1:])
+    fs = eng.fault_stats
+    if fs["shed_requests"] == 0 or fs["shed_spec_chunks"] == 0:
+        raise AssertionError(f"admission: {dict(fs.items())}")
+    _same_tokens("f32_admission", out, base)
+    log(f"serve[f32_admission]: shed {[r.rid for r in eng.scheduler.shed]}"
+        f", served tokens equal the run without admission")
+    del params
+    torch.cuda.empty_cache()
+
+    # 4. the chaos run at bf16, for time: CRC hashing's share of the wall
+    params = init_params(api.model_specs(cfg), seed=0, dtype=torch.bfloat16,
+                         device="cuda")
+    serve_run("bf16_warmup", mods, engine(torch.bfloat16, 0), params,
+                  reqs(), cfg.vocab_size, paged)
+    _, _, free_wall = serve_run("bf16_fault_free", mods,
+                                    engine(torch.bfloat16, 0), params,
+                                    reqs(), cfg.vocab_size, paged)
+    eng = engine(torch.bfloat16, 0, faults=FaultInjector(FaultPlan(**CHAOS)))
+    spent = {"verify_s": 0.0, "boundaries": 0, "stamped": 0}
+    verify, apply = eng.kv.verify_integrity, eng._apply_faults
+
+    def timed_verify():
+        t0 = time.perf_counter()
+        spent["stamped"] += len(eng.kv._page_crc)
+        try:
+            return verify()
+        finally:
+            spent["verify_s"] += time.perf_counter() - t0
+
+    def counted_apply(*args):
+        spent["boundaries"] += 1
+        return apply(*args)
+
+    eng.kv.verify_integrity, eng._apply_faults = timed_verify, counted_apply
+    _, _, wall = serve_run("bf16_chaos", mods, eng, params, reqs(),
+                               cfg.vocab_size, paged)
+    leaves = sum(1 for _ in tree_items(eng.kv.pages))
+    log(f"serve[bf16_chaos]: {spent['boundaries']} boundaries, "
+        f"{eng.fault_stats['fault_detections']} detections, wall "
+        f"{wall:.3f}s against {free_wall:.3f}s fault-free; "
+        f"verify_integrity {spent['verify_s']:.4f}s on the host "
+        f"({100 * spent['verify_s'] / wall:.1f}% of the wall) for "
+        f"{spent['stamped']} page checks of {leaves} pool leaves each "
+        f"({spent['stamped'] * leaves} device-to-host copies)")
+
+    # 5. fp8 weights (the tied embedding too): the gather on a float8
+    # table and every cast, at bf16 compute
+    q8 = quantize_weights(params)
+    if q8["embed"].dtype != torch.float8_e4m3fn:
+        raise AssertionError(f"fp8: embed {q8['embed'].dtype}")
+    del params
+    serve_run("fp8_weights", mods, engine(torch.bfloat16, 0), q8,
+                  reqs(), cfg.vocab_size, paged)
+    del q8
+    torch.cuda.empty_cache()
+
+    # 6. the launcher, as a user runs it on the card
+    launch_serve.main(["--arch", "qwen2_0_5b", "--trace", "8", "--bist",
+                       "--chaos", "7", "--ttft-deadline", "64",
+                       "--spec-off-depth", "2", "--draft-k", "2",
+                       "--quantize", "fp8", "--dtype", "bfloat16"])
+    torch.cuda.empty_cache()
+    return bist_counts, chaos_counts
 
 
 # ------------------------------------------------------------------- train
@@ -896,8 +1179,9 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as kern
     from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import moe_gemm
-    mods = (kern, moe_gemm, flash)
+    mods = (kern, moe_gemm, flash, mm)
 
     # f32 comparisons run in full f32 (matmul and cuDNN)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -990,6 +1274,22 @@ def main() -> int:
             f"ms={v['ms']:.4f} "
             f"plain_ms={v['plain_ms']:.4f} library_ms={v['library_ms']:.4f} "
             f"bound_ms={v['bound_ms']:.4f} ({v['bound_by']})")
+    # the matmul: the self-test's 128^3 (f32, as BIST runs it), the JAX
+    # test shapes, a ragged shape, qwen2-0.5B's MLP up projection of a
+    # 4096-token prefill
+    mms = [matmul_case(i, o, *shape)
+           for shape in ((128, 128, 128), (256, 512, 256), (512, 1024, 128))
+           for i, o in (("f32", "f32"), ("bf16", "f32"))]
+    mms += [matmul_case(i, i, 200, 300, 136) for i in ("f32", "bf16")]
+    mms += [matmul_case("bf16", o, 4096, 896, 4864) for o in ("f32", "bf16")]
+    for v in mms:
+        log(f"kernel matmul {v['in']}->{v['out']} M={v['m']} K={v['k']} "
+            f"N={v['n']}: max_abs_err={v['max_abs_err']:.3e} (tol "
+            f"{v['tol']:.3e}, max |out| {v['max_abs_out']:.3e}) "
+            f"planted_fault(last K tile skipped)={v['planted_fault']:.3e} "
+            f"ms={v['ms']:.4f} plain_ms={v['plain_ms']:.4f} "
+            f"library_ms={v['library_ms']:.4f} (torch.matmul) "
+            f"bound_ms={v['bound_ms']:.5f} ({v['bound_by']})")
     log(f"kernels phase done at {time.perf_counter() - t_start:.1f}s")
 
     # 4-5. the serving paths, each with the counts read around its runs
@@ -997,20 +1297,31 @@ def main() -> int:
     log(f"qwen phase done at {time.perf_counter() - t_start:.1f}s")
     counts[f"mixtral_8x22b_{MIXTRAL_LAYERS}l"] = serve_mixtral(mods)
     log(f"mixtral phase done at {time.perf_counter() - t_start:.1f}s")
+    counts["qwen2_0_5b_bist"], counts["qwen2_0_5b_chaos"] = \
+        serve_resilient(mods)
+    log(f"resilient serve phase done at {time.perf_counter() - t_start:.1f}s")
     counts["qwen2_0_5b_train"] = train_qwen(mods)
     log(f"train phase done at {time.perf_counter() - t_start:.1f}s")
     serve_path = counts[f"mixtral_8x22b_{MIXTRAL_LAYERS}l"]
 
-    # one line for every kernel: launches on the path that runs it (flash:
-    # the bf16 training run; paged and grouped: the Mixtral bf16 serve), a
-    # representative at that path's shapes (flash: bf16 causal at the
-    # training shape; paged: bf16 pages at Mixtral's shapes, decode and the
-    # span at T=128; grouped: bf16, a 4-token decode step's up projection),
-    # and every variant measured
+    # one line for every kernel: launches on the path that runs it (matmul:
+    # the startup self-test; flash: the bf16 training run; paged and
+    # grouped: the Mixtral bf16 serve), a representative at that path's
+    # shapes (matmul: f32 128^3; flash: bf16 causal at the training shape;
+    # paged: bf16 pages at Mixtral's shapes, decode and the span at T=128;
+    # grouped: bf16, a 4-token decode step's up projection), and every
+    # variant measured
     kernels = []
     for kname, replaces in KERNELS.items():
         main_path = serve_path
-        if kname == "flash_attention":
+        if kname == "matmul":
+            main_path = counts["qwen2_0_5b_bist"]
+            mine = mms
+            rep = mms[0]
+            keys = ("in", "out", "m", "k", "n", "max_abs_err", "tol",
+                    "planted_fault", "ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by")
+        elif kname == "flash_attention":
             main_path = counts["qwen2_0_5b_train"]
             mine = flashes
             rep = flashes[0]

@@ -1,10 +1,11 @@
 """Public kernel entry points with an implementation switch
-(``repro/kernels/ops.py`` without the mesh branches): flash attention,
-paged attention and the m-grouped MoE GEMM.
+(``repro/kernels/ops.py`` without the mesh branches): the tiled matmul,
+flash attention, paged attention and the m-grouped MoE GEMM.
 
 ``impl="cuda"`` launches the hand-written Hopper kernel and needs CUDA
-tensors; ``impl="ref"`` runs the plain-torch oracle (the full softmax;
-gather the pages, then attend; one f32 product per expert) on any device.
+tensors; ``impl="ref"`` runs the plain-torch oracle (an f32 dot; the full
+softmax; gather the pages, then attend; one f32 product per expert) on any
+device.
 Model code picks the impl through ``ModelContext.attn_impl`` (and
 ``moe_impl``).
 """
@@ -17,6 +18,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _kernels
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import matmul as _matmul
 from repro_torch.kernels import moe_gemm as _moe_gemm
 from repro_torch.kernels import ref as _ref
 
@@ -29,6 +31,16 @@ def _cuda_only(q: torch.Tensor, impl: str) -> None:
     if impl == "cuda" and not q.is_cuda:
         raise ValueError("impl='cuda' needs CUDA tensors; use impl='ref' "
                          "on the CPU")
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *, impl: str = "cuda",
+           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """(M, K) @ (K, N) with fp32 products and sums, cast to ``out_dtype``
+    (default a's dtype)."""
+    _cuda_only(a, impl)
+    if impl == "ref":
+        return _ref.matmul_ref(a, b, out_dtype)
+    return _matmul.matmul(a, b, out_dtype=out_dtype)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,4 +1,4 @@
-"""Plain-torch twins of the flash-attention, paged-attention and
+"""Plain-torch twins of the matmul, flash-attention, paged-attention and
 grouped-GEMM oracles in ``repro/kernels/ref.py`` (the correctness
 contract of the CUDA kernels).
 
@@ -14,6 +14,13 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+
+
+def matmul_ref(a: torch.Tensor, b: torch.Tensor,
+               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """An fp32 dot of the inputs' values, cast to ``out_dtype`` (default
+    a's dtype)."""
+    return (a.float() @ b.float()).to(out_dtype or a.dtype)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -13,8 +13,19 @@ unless ``--device cpu``. ``--profile`` runs the serve under
 ``torch.profiler`` and prints the device-busy share of that run's wall
 time and the operations that took the most device time.
 
+Resilience, as the reference launcher: ``--bist`` runs the startup self-test
+(FBIST golden patterns through the matmul kernel, one golden pattern
+through the paged-decode kernel) on the serving device and refuses to
+serve on a mismatch; ``--chaos SEED`` turns on the deterministic fault
+schedule; ``--ttft-deadline`` and ``--spec-off-depth`` turn on SLO
+admission; ``--quantize`` stores the weights in fp8 (or int8, a storage
+demo that zeroes nearly every weight).
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b \
       --smoke --trace 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b \
+      --smoke --trace 8 --bist --chaos 7 --ttft-deadline 64 \
+      --spec-off-depth 2 --draft-k 2 --quantize fp8 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral_8x22b \
       --smoke --trace 4 --device cpu [--moe-dispatch capacity]
 """
@@ -34,7 +45,9 @@ from repro_torch.models import api
 from repro_torch.models.blocks import ModelContext
 from repro_torch.models.params import init_params
 from repro_torch.obs.trace import SpanTracer
-from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.admission import AdmissionController, AdmissionPolicy
+from repro_torch.serve.engine import ServeEngine, quantize_weights
+from repro_torch.serve.faults import FaultInjector, FaultPlan, startup_bist
 from repro_torch.serve.scheduler import Request
 
 
@@ -147,6 +160,24 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                          "buffer")
     ap.add_argument("--kv-int8", action="store_true",
                     help="int8 paged KV pages")
+    ap.add_argument("--quantize", choices=["none", "int8", "fp8"],
+                    default="none", help="weight storage dtype")
+    ap.add_argument("--bist", action="store_true",
+                    help="run the built-in self-test (golden patterns "
+                         "through the matmul and paged-decode kernels) on "
+                         "the serving device first; refuse to serve on a "
+                         "mismatch")
+    ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
+                    help="turn on the deterministic fault schedule with "
+                         "this seed (KV page flips, stragglers)")
+    ap.add_argument("--ttft-deadline", type=int, default=None,
+                    metavar="STEPS",
+                    help="shed requests whose best-case TTFT exceeds this "
+                         "many engine steps")
+    ap.add_argument("--spec-off-depth", type=int, default=None,
+                    metavar="DEPTH",
+                    help="drop speculative decoding while more than DEPTH "
+                         "requests queue")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
@@ -166,6 +197,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     device = resolve_device(args.device)
     if args.profile and device.type != "cuda":
         raise SystemExit("--profile measures device time: it needs a GPU")
+    impl = "cuda" if device.type == "cuda" else "ref"
+    if args.bist:
+        res = startup_bist(impl=impl, device=device)
+        print(f"bist: matmul max_err={res.matmul_report.max_abs_err:.3e} "
+              f"paged_decode max_err={res.paged_decode_max_err:.3e} "
+              f"-> {'PASS' if res.passed else 'FAIL'}")
+        if not res.passed:
+            raise SystemExit(
+                "bist: kernel self-test failed; refusing to serve")
     cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
     dtype = getattr(torch, args.dtype)
     ctx = ModelContext(
@@ -174,8 +214,21 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         device=device, moe_dispatch=args.moe_dispatch)
     params = init_params(api.model_specs(cfg), seed=args.seed, dtype=dtype,
                          device=device)
+    if args.quantize != "none":
+        params = quantize_weights(params, {"fp8": torch.float8_e4m3fn,
+                                           "int8": torch.int8}[args.quantize])
     window = args.prompt_len + args.max_new
     tracer = SpanTracer() if args.trace_out else None
+    faults = None
+    if args.chaos is not None:  # the reference launcher's plan
+        faults = FaultInjector(FaultPlan(
+            seed=args.chaos, worker_fail_rate=0.05, page_flip_rate=0.05,
+            transfer_drop_rate=0.05, straggler_rate=0.05))
+    admission = None
+    if args.ttft_deadline is not None or args.spec_off_depth is not None:
+        admission = AdmissionController(AdmissionPolicy(
+            ttft_deadline_steps=args.ttft_deadline,
+            spec_off_queue_depth=args.spec_off_depth))
 
     def make_engine() -> ServeEngine:
         return ServeEngine(
@@ -183,7 +236,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             chunk=args.chunk, page_size=args.page_size,
             temperature=args.temperature, draft_k=args.draft_k,
             prefix_cache=not args.no_prefix_cache,
-            prefill_chunk=args.prefill_chunk, tracer=tracer)
+            prefill_chunk=args.prefill_chunk, tracer=tracer,
+            faults=faults, admission=admission)
 
     engine = make_engine()
     gen = torch.Generator(device=device)
@@ -219,6 +273,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         print(f"prefix_hit_rate={engine.prefix_hit_rate:.2f} "
               f"acceptance_length={engine.acceptance_length:.2f} "
               f"kv={engine.kv.counters}")
+        if faults is not None or admission is not None:
+            print(f"[faults] {dict(engine.fault_stats.items())}")
         dump_telemetry(engine, args)
         return
 

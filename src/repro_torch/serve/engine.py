@@ -22,11 +22,18 @@ The single-host paged path of the reference, in eager PyTorch:
     on the device. The host drains once per chunk (one ``.cpu()``), so
     ``host_syncs == chunks``.
 
+  * **Fault injection and admission control** (``faults``,
+    ``admission``): the reference's deterministic chaos schedule, keyed
+    by chunk-boundary index (KV page flips caught by per-page CRC stamps,
+    quarantined and replayed; stragglers), and TTFT-deadline shedding
+    with speculation dropped under queue pressure.
+
 Greedy decoding is the parity contract with the reference engine;
 ``temperature > 0`` samples (Gumbel-max) from an explicit
-``torch.Generator``. The reference's mesh, disaggregation, fault and
-admission hooks and its dense (non-paged) families are not ported yet and
-raise ``NotImplementedError``.
+``torch.Generator``. The reference's mesh and disaggregation paths (and
+with them the worker-failure and transfer-drop faults) and its dense
+(non-paged) families are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import torch
 from repro_torch.models import api
 from repro_torch.models.blocks import ModelContext
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import tree_map
 from repro_torch.obs.metrics import (CounterDict, MetricsRegistry,
                                      QUEUE_WAIT_BUCKETS_STEPS)
 from repro_torch.obs.steptrace import StepTrace
@@ -73,20 +81,24 @@ class ServeEngine:
     draft_k: int = 0
     prefix_cache: Optional[bool] = None
     prefill_chunk: int = 128
-    # reference features not ported yet: setting any of them raises
+    # reference features not ported yet: setting either raises
     mesh: Any = None
     disaggregate: bool = False
+    # serve.faults.FaultInjector (None: no fault schedule);
+    # serve.admission.AdmissionController (None admits everything).
+    # ``retry_budget`` bounds fault replays per request before the
+    # deterministic terminal failure (state="failed").
     faults: Any = None
     admission: Any = None
+    retry_budget: int = 3
     metrics: Any = None  # obs.MetricsRegistry (None -> fresh enabled one)
     tracer: Any = None  # obs.SpanTracer (None -> disabled)
 
     def __post_init__(self) -> None:
         cfg = self.cfg
-        for name in ("mesh", "faults", "admission"):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"ServeEngine({name}=...) is not ported yet")
+        if self.mesh is not None:
+            raise NotImplementedError("ServeEngine(mesh=...) is not ported "
+                                      "yet")
         if self.disaggregate:
             raise NotImplementedError(
                 "prefill/decode disaggregation is not ported yet")
@@ -147,6 +159,19 @@ class ServeEngine:
         self.kv = PagedKVCache(cfg, self.ctx, self.num_pages,
                                self.page_size, self.max_batch,
                                self.pages_per_seq)
+        if self.retry_budget < 0:
+            raise ValueError("retry_budget must be >= 0")
+        self.fault_stats = CounterDict(
+            self.metrics,
+            ("fault_worker_failures", "fault_page_corruptions",
+             "fault_pages_quarantined", "fault_transfer_drops",
+             "fault_stragglers", "fault_detections", "retry_requeues",
+             "retry_failures", "shed_requests", "shed_spec_chunks"),
+            prefix="serve_")
+        if self.faults is not None:
+            # CRC-stamp published pages so injected corruption is caught
+            # at the next boundary, before any chunk could read it
+            self.kv.integrity_checks = True
         self.span_len = max(1, min(self.prefill_chunk, self.window))
         # span shapes run so far: the reference compiles one program per
         # shape, so their count is its span_prefill_compiles metric
@@ -386,6 +411,53 @@ class ServeEngine:
         self._n_out[slot] = len(req.generated)
         self._max_new[slot] = req.max_new
 
+    # ------------------------------------------------------------- faults
+
+    def _fail_slot(self, slot: int, sched: ContinuousBatchingScheduler,
+                   clock: int, reason: str) -> None:
+        """Fault recovery for one running slot: release its pages, freeze
+        the slot on the device, and replay the request (re-admission
+        re-prefills ``resume_prompt()`` past surviving cached pages) with
+        exponential backoff until the retry budget forces the terminal
+        failure."""
+        req = sched.running.get(slot)
+        if req is None:
+            return
+        self.kv.release(slot)
+        self._done[slot] = True
+        pid = self._trace_pid
+        self.tracer.end(pid=pid, tid=slot)  # req span
+        self.tracer.instant("fault_replay", pid=pid, tid=slot, cat="serve",
+                            args={"rid": req.rid, "reason": reason,
+                                  "retries": req.retries})
+        if req.retries >= self.retry_budget:
+            sched.fail(req)
+            self.fault_stats["retry_failures"] += 1
+        else:
+            backoff = self.chunk * (1 << min(req.retries, 6))
+            sched.requeue(req, not_before=clock + backoff)
+            self.fault_stats["retry_requeues"] += 1
+
+    def _apply_faults(self, boundary: int, clock: int,
+                      sched: ContinuousBatchingScheduler) -> None:
+        """Inject this boundary's page flip, then run detection, in that
+        order and before the chunk, so corrupted KV is quarantined before
+        any decode step could read it: CRC-verify every stamped page,
+        quarantine mismatches and replay every request still mapping
+        them."""
+        fs = self.fault_stats
+        r = self.faults.page_flip(boundary)
+        if r is not None:
+            pids = self.kv.corruptible_pages()
+            if pids:
+                self.kv.corrupt_page(pids[r % len(pids)])
+                fs["fault_page_corruptions"] += 1
+        for bad_pid, _h in self.kv.verify_integrity():
+            fs["fault_detections"] += 1
+            fs["fault_pages_quarantined"] += 1
+            for slot in self.kv.slots_referencing(bad_pid):
+                self._fail_slot(slot, sched, clock, reason="kv_corruption")
+
     # ---------------------------------------------------------------- run
 
     def submit_check(self, req: Request) -> None:
@@ -535,13 +607,32 @@ class ServeEngine:
         self._req_obs = {}
         run_t0 = now()
         clock = 0
+        boundary = -1  # chunk-boundary index: the fault-schedule clock
         per_step = 1 + self.draft_k if self._use_spec else 1
         while sched.has_work():
+            boundary += 1
             wall = now()
             for r in sched.waiting:
                 if r.arrival <= clock:  # "ready": anchors queue wait
                     self._req_obs.setdefault(r.rid, {}) \
                         .setdefault("ready", wall)
+            if self.admission is not None:
+                # enqueue-time shedding: a request whose best-case first
+                # token already misses its TTFT deadline leaves before it
+                # takes a decode slot
+                for r in list(sched.waiting):
+                    if r.arrival <= clock and self.admission.should_shed(
+                            r, clock, chunk=self.chunk,
+                            span_len=self.span_len, disaggregated=False):
+                        sched.shed_request(r)
+                        self.fault_stats["shed_requests"] += 1
+                        self.tracer.instant(
+                            "shed", pid=pid, tid=self._device_tid,
+                            cat="serve", args={"rid": r.rid})
+            if self.faults is not None:
+                # quarantined pages and failed slots are settled before
+                # admission or the chunk can observe them
+                self._apply_faults(boundary, clock, sched)
             self._grow_or_preempt(sched, per_step)
             self._admit(params, sched, clock, per_step, temp)
             if not sched.running:
@@ -550,7 +641,12 @@ class ServeEngine:
                         "admission stalled with an empty batch: the page "
                         "pool cannot hold one request (shrink window or "
                         "grow num_pages)")
-                # idle: jump the clock to the next arrival
+                if not sched.waiting:
+                    # shedding emptied the queue this boundary; the loop
+                    # condition settles whether work remains
+                    continue
+                # idle: jump the clock to the next arrival (or the
+                # earliest replay backoff expiry of a requeued request)
                 nxt = min(max(r.arrival, r.not_before)
                           for r in sched.waiting)
                 clock = max(clock + self.chunk, nxt)
@@ -560,11 +656,29 @@ class ServeEngine:
             chunk_t0 = now()
             live = len(sched.running)
             table = self.kv.table_device()
-            if self._use_spec:
+            # under queue pressure, a plain chunk instead of a speculative
+            # one: token-identical, since acceptance only ever matches the
+            # model's own greedy targets
+            use_spec = self._use_spec
+            if use_spec and self.admission is not None \
+                    and self.admission.drop_speculation(len(sched.waiting)):
+                use_spec = False
+                self.fault_stats["shed_spec_chunks"] += 1
+            if use_spec:
                 toks = self._run_chunk_spec(params, table, temp)
             else:
                 toks = self._run_chunk(params, table, temp)
             clock += self.chunk
+            if self.faults is not None:
+                # straggler: one chunk of work took extra boundaries of
+                # clock; it shifts TTFT and queue waits, never tokens
+                extra = self.faults.straggler(boundary)
+                if extra:
+                    clock += extra * self.chunk
+                    self.fault_stats["fault_stragglers"] += 1
+                    self.tracer.instant(
+                        "straggler", pid=pid, tid=self._device_tid,
+                        cat="serve", args={"extra_boundaries": extra})
             self.counters["chunks"] += 1
             self.counters["decode_steps"] += self.chunk
             # drain: the single host read per chunk
@@ -581,7 +695,7 @@ class ServeEngine:
             emitted = 0
             for slot in list(sched.running):
                 req = sched.running[slot]
-                if self._use_spec:
+                if use_spec:
                     # toks_h[slot]: (chunk, 1+draft_k); emitted tokens
                     # form a prefix of each step row
                     for step_row in toks_h[slot]:
@@ -630,7 +744,7 @@ class ServeEngine:
             mtr["chunk_hist"].observe(chunk_dt)
             mtr["decode_tokens"].add(emitted)
             self.steptrace.record(
-                "spec_decode" if self._use_spec else "decode", chunk_dt,
+                "spec_decode" if use_spec else "decode", chunk_dt,
                 batch=live, steps=self.chunk, tokens=emitted,
                 queue_depth=len(sched.waiting))
             self.tracer.complete(
@@ -666,3 +780,15 @@ class ServeEngine:
                     [row, np.full(max_new - len(row), pad, np.int32)])
             rows.append(row)
         return torch.from_numpy(np.stack(rows))
+
+
+def quantize_weights(params: Any, dtype: torch.dtype = torch.float8_e4m3fn
+                     ) -> Any:
+    """Weight-only storage quantization, as the reference's: every
+    floating leaf with two or more dims is cast to ``dtype``, the tied
+    embedding included; 1-D leaves (norm scales) keep theirs. The model
+    casts each weight back to the compute dtype where it reads it. An
+    int8 cast truncates toward zero, so small weights become 0 (the
+    reference's storage demo)."""
+    return tree_map(lambda p: p.to(dtype)
+                    if p.dim() >= 2 and p.is_floating_point() else p, params)

@@ -181,7 +181,6 @@ def test_unported_features_raise(qwen):
     cfg = qwen[0]
     ctx = TCtx(compute_dtype=torch.float32, device="cpu")
     for kw in (dict(mesh=object()), dict(disaggregate=True),
-               dict(faults=object()), dict(admission=object()),
                dict(paged=False)):
         with pytest.raises(NotImplementedError):
             TEngine(cfg, ctx, window=32, **kw)

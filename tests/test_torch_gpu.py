@@ -13,7 +13,11 @@ the plain version's) and, row by row, within FLASH_ROW_C bf16 steps
 (2^-8) of the row's largest |value| (most rows average many keys to
 small values); its autograd route's gradients equal the plain route's
 exactly (the same plain backward at the same inputs), and the route
-launches the kernel at any sequence length."""
+launches the kernel at any sequence length. The matmul kernel: f32
+outputs within 4 * sqrt(K) * eps32 * max|out| (summation order; TF32
+inputs fail it), bf16 outputs within one bf16 step (2^-7 relative) of
+max|out|; the startup self-test passes through it and fails on planted
+faults, and a chaos serve's survivors keep the fault-free tokens."""
 
 import numpy as np
 import pytest
@@ -22,8 +26,10 @@ import torch
 from repro_torch.configs.registry import get_smoke
 from repro_torch.configs.registry import get_arch
 from repro_torch.data.pipeline import DataConfig, DataPipeline
+from repro_torch.core.sdc import FaultModel, faulty_wrap
 from repro_torch.kernels import decode_attention as kern
 from repro_torch.kernels import flash_attention as flash
+from repro_torch.kernels import matmul as mm
 from repro_torch.kernels import moe_gemm, ref
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch.train import make_optimizer
@@ -32,6 +38,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.blocks import ModelContext, paged_quantize
 from repro_torch.models.params import init_params
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.faults import FaultInjector, FaultPlan, startup_bist
 from repro_torch.serve.scheduler import Request
 from repro_torch.train.step import init_train_state, make_train_step
 
@@ -401,3 +408,105 @@ def test_full_width_train_steps_never_wait_for_the_device(cuda):
         losses.append(float(metrics["loss"]))
         assert flash.launches["flash_attention"] == 2 * cfg.n_layers
     assert all(np.isfinite(losses)) and int(state["step"]) == 2
+
+
+# --------------------------------------------------------------- matmul
+
+EPS32 = 1.1920929e-07
+
+
+def _mm_limit(want, k, out_dtype):
+    big = float(want.float().abs().max())
+    if out_dtype == torch.bfloat16:
+        return 2.0 ** -7 * big + 1e-6
+    return 4 * k ** 0.5 * EPS32 * big + 1e-6
+
+
+# (M, K, N): the self-test's 128^3, the JAX test shapes, ragged edges
+# (K and N not multiples of 8: plain loads), tiny and K = 1
+MM_SHAPES = [(128, 128, 128), (256, 512, 256), (512, 1024, 128),
+             (200, 300, 136), (1, 7, 3), (130, 1, 250), (67, 96, 40)]
+
+
+@pytest.mark.parametrize("m,k,n", MM_SHAPES)
+@pytest.mark.parametrize("in_dt,out_dt", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)])
+def test_matmul_kernel_matches_plain(cuda, m, k, n, in_dt, out_dt):
+    g = torch.Generator(device="cpu").manual_seed(m * k + n)
+    a = torch.randn((m, k), generator=g).to(in_dt).to(cuda)
+    b = torch.randn((k, n), generator=g).to(in_dt).to(cuda)
+    before = mm.launches["matmul"]
+    got = mm.matmul(a, b, out_dtype=out_dt)
+    assert mm.launches["matmul"] == before + 1
+    want = ref.matmul_ref(a, b, out_dt)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dt and got.shape == (m, n)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= _mm_limit(want, k, out_dt), err
+    # one fixed summation order: bit-reproducible
+    assert torch.equal(mm.matmul(a, b, out_dtype=out_dt), got)
+
+
+def test_matmul_kernel_skipping_a_k_tile_fails_the_limit(cuda):
+    g = torch.Generator(device="cpu").manual_seed(0)
+    for dt in (torch.float32, torch.bfloat16):
+        a = torch.randn((200, 300), generator=g).to(dt).to(cuda)
+        b = torch.randn((300, 136), generator=g).to(dt).to(cuda)
+        want = ref.matmul_ref(a, b, torch.float32)
+        kt = mm.K_TILE[dt]
+        cut = 300 - (300 % kt or kt)
+        bad = mm.matmul(a[:, :cut].contiguous(), b[:cut].contiguous(),
+                        out_dtype=torch.float32)
+        err = float((bad - want).abs().max())
+        assert err > _mm_limit(want, 300, torch.float32), err
+
+
+def test_matmul_wrapper_rejects_bad_inputs(cuda):
+    a = torch.randn((8, 16), device=cuda)
+    with pytest.raises(ValueError):
+        mm.matmul(a, torch.randn((8, 16), device=cuda))  # contraction
+    with pytest.raises(ValueError):
+        mm.matmul(a, torch.randn((16, 4), device=cuda).bfloat16())
+    with pytest.raises(ValueError):
+        mm.matmul(a, torch.randn((4, 16), device=cuda).t())  # strides
+    with pytest.raises(ValueError):
+        mm.matmul(a.half(), torch.randn((16, 4), device=cuda).half())
+
+
+def test_startup_bist_on_the_card(cuda):
+    mm.reset_launches()
+    kern.reset_launches()
+    res = startup_bist()
+    assert res.passed, res
+    assert mm.launches["matmul"] == 8
+    assert kern.launches["paged_decode_attention"] == 1
+    bad_mm = faulty_wrap(lambda a, b: mm.matmul(a, b),
+                         FaultModel(rate=1.0, magnitude=0.5, seed=1))
+    res = startup_bist(matmul_fn=bad_mm)
+    assert not res.passed and not res.matmul_report.passed
+    res = startup_bist(decode_fn=lambda q, *a: torch.zeros_like(q))
+    assert not res.passed and not res.paged_decode_ok
+
+
+@pytest.mark.parametrize("draft_k", [0, 2])
+def test_chaos_serve_survivors_keep_fault_free_tokens(cuda, draft_k):
+    cfg = get_smoke("qwen2_0_5b")
+    params = init_params(api.model_specs(cfg), seed=0, device=cuda)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(9, 15)))
+               for _ in range(3)]
+    plan = FaultPlan(seed=7, worker_fail_rate=0.25, page_flip_rate=0.25,
+                     transfer_drop_rate=0.2, straggler_rate=0.2)
+    outs = []
+    for faults in (None, FaultInjector(plan)):
+        ctx = ModelContext(compute_dtype=torch.float32, device=cuda)
+        eng = ServeEngine(cfg, ctx, window=32, max_batch=2, chunk=2,
+                          page_size=8, draft_k=draft_k, faults=faults)
+        outs.append(eng.run(params, [Request(rid=i, prompt=p, max_new=16)
+                                     for i, p in enumerate(prompts)]))
+    assert eng.fault_stats["fault_detections"] > 0
+    assert eng.fault_stats["fault_page_corruptions"] > 0
+    assert outs[1]
+    for rid, toks in outs[1].items():
+        np.testing.assert_array_equal(toks, outs[0][rid])

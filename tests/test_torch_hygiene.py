@@ -12,12 +12,14 @@ import pytest
 import torch
 
 from repro_torch.configs.registry import get_smoke
+from repro_torch.core.sdc import FBIST
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 from repro_torch.models import api
 from repro_torch.models.blocks import ModelContext
 from repro_torch.models.params import init_params
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.faults import startup_bist
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 PKG = SRC / "repro_torch"
@@ -66,6 +68,14 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
         ServeEngine(cfg, ModelContext(), window=32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_serve.main(["--arch", "qwen2_0_5b", "--smoke"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_serve.main(["--arch", "qwen2_0_5b", "--smoke", "--bist"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        startup_bist()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FBIST().run(lambda a, b: a @ b)
+    with pytest.raises(ValueError, match="CUDA"):
+        startup_bist(device="cpu")  # the kernels need CUDA tensors
     with pytest.raises(ValueError, match="CUDA device"):
         ModelContext(attn_impl="cuda", device="cpu")
     ctx = ModelContext(device="cpu")

@@ -19,6 +19,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models.blocks import paged_quantize as j_paged_quantize
 from repro_torch.kernels import decode_attention as tdec
+from repro_torch.kernels import matmul as tmatmul
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -143,3 +144,70 @@ def test_cuda_impl_refuses_cpu_tensors():
         tops.paged_decode_span_attention(q, k, v, tab, pos, impl="cuda")
     with pytest.raises(ValueError, match="impl"):
         tops.paged_decode_attention(q[:, 0], k, v, tab, pos, impl="xla")
+
+
+# ---------------------------------------------------------------- matmul
+
+
+def _mm_inputs(m, k, n, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((m, k)).astype(np.float32),
+            rng.standard_normal((k, n)).astype(np.float32))
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 512, 256), (512, 1024, 128),
+                                   (128, 128, 128)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_matmul_ref_matches_jax_interpret(m, k, n, dtype):
+    """The plain twin (what the CUDA kernel is held to on the card)
+    against the Pallas kernel in interpret mode and the jnp oracle, with
+    the JAX test's tolerances (tests/test_kernels.py)."""
+    a, b = _mm_inputs(m, k, n, seed=m + k + n)
+    ja, jb = jnp.asarray(a, JDT[dtype]), jnp.asarray(b, JDT[dtype])
+    ta = torch.from_numpy(np.array(ja, np.float32)).to(TDT[dtype])
+    tb = torch.from_numpy(np.array(jb, np.float32)).to(TDT[dtype])
+    want = jops.matmul(ja, jb, impl="interpret", out_dtype=jnp.float32,
+                       block_m=128, block_n=128, block_k=128)
+    got = tops.matmul(ta, tb, impl="ref", out_dtype=torch.float32)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    tol = 2e-2 if dtype == "bf16" else 1e-5
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
+                               atol=tol * 8)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jref.matmul_ref(ja, jb, jnp.float32)),
+        rtol=tol, atol=tol * 8)
+    # default out dtype: the inputs'
+    assert tref.matmul_ref(ta, tb).dtype == TDT[dtype]
+
+
+def test_matmul_ref_fp8_storage_matches_jax():
+    a, b = _mm_inputs(128, 256, 128, seed=3)
+    ja = jnp.asarray(a).astype(jnp.float8_e4m3fn).astype(jnp.bfloat16)
+    jb = jnp.asarray(b).astype(jnp.float8_e4m3fn).astype(jnp.bfloat16)
+    ta = torch.from_numpy(a).to(torch.float8_e4m3fn).to(torch.bfloat16)
+    tb = torch.from_numpy(b).to(torch.float8_e4m3fn).to(torch.bfloat16)
+    # the fp8 round trip is the same in both frameworks, bit for bit
+    np.testing.assert_array_equal(ta.float().numpy(),
+                                  np.asarray(ja, np.float32))
+    want = jops.matmul(ja, jb, impl="interpret", out_dtype=jnp.float32,
+                       block_m=128, block_n=128, block_k=128)
+    got = tops.matmul(ta, tb, impl="ref", out_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-2,
+                               atol=0.5)
+
+
+def test_matmul_wrapper_on_the_cpu_and_its_checks():
+    a, b = _mm_inputs(5, 7, 3, seed=0)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    before = tmatmul.launches["matmul"]
+    got = tmatmul.matmul(ta, tb, out_dtype=torch.bfloat16)  # plain on CPU
+    assert tmatmul.launches["matmul"] == before  # no kernel, no count
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        got.float().numpy(),
+        torch.from_numpy(a.astype(np.float32) @ b).to(
+            torch.bfloat16).float().numpy())
+    with pytest.raises(ValueError, match="contraction"):
+        tmatmul.matmul(ta, ta)
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.matmul(ta, tb, impl="cuda")
