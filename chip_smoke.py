@@ -21,7 +21,14 @@ result line):
                GEMM x {f32, bf16, int8 weights} at Mixtral's widths
                (D=6144, F=16384, 8 experts, top-2) for a decode step of 4
                tokens and a 128-token prefill chunk, up and down, plus a
-               ragged smoke shape and an all -1 plan;
+               ragged smoke shape and an all -1 plan; the dense ring
+               decode kernel x {f32, bf16} at phi4-mini's (H=24, KV=8,
+               D=128: a GQA group of 3), qwen2.5-3B's (16/2), internlm2's
+               (16/8) and Mixtral's (48/8) head shapes: a 4096-slot ring
+               with wrapped rows, a ragged 1000-slot ring, rows at pos 0, a
+               window below the ring width, and phi4's serving shape; each
+               also run at pos - 1 (one key dropped), a planted fault that
+               must fail the limit; the paged kernels also at phi4's heads;
   4. qwen    - full-width qwen2-0.5B from seeded random weights through
                ServeEngine.run: bf16 pages, draft_k=2, an int8 pool; then a
                short f32 run (TF32 off) whose greedy tokens through the
@@ -35,7 +42,22 @@ result line):
                (quantize_moe_params) through moe_ffn, kernel against plain,
                with any host sync an error; then 2 layers in f32 (TF32 off)
                whose greedy tokens through the kernels must equal the plain
-               path's, one prompt of 4500 tokens trimming pages;
+               path's, one prompt of 4500 tokens trimming pages; and on the
+               dense backend (paged=False), where the 4096-token window
+               makes every layer's cache a 4096-slot ring: 6 prompts of
+               3000-4500 tokens (full-prompt prefill through the flash and
+               grouped-GEMM kernels, rolled into the ring; one row wraps
+               during decode) decoded through the dense decode kernel, in
+               bf16 at 4 layers (then again under torch.profiler) and,
+               greedy tokens equal to the plain path's, in f32 at 2;
+  5b. dense  - full-width, full-depth phi4-mini-3.8B (32 layers, bf16) on
+               the dense backend: 8 requests of 64-1024 prompt tokens and 32
+               new ones through the chunked dense-span prefill and the dense
+               decode kernel (launches = 32 x decode steps), two of the
+               requests under torch.profiler, then generate_pertoken
+               (flash prefill, dense decode); then 4 layers in f32 (TF32
+               off) whose greedy tokens through the kernels equal the
+               plain path's, on run and generate_pertoken;
   6. resilient serve - full-width qwen2-0.5B under the startup self-test,
                the deterministic fault schedule and SLO admission: BIST on
                the card (8 matmul-kernel launches, 1 paged-decode launch;
@@ -105,6 +127,7 @@ TOL = {"f32": 1e-4, "bf16": 2e-2, "int8": 2e-2}
 BF16_STEP = 2.0 ** -8
 FLASH_ROW_C = 4.0
 KERNELS = {
+    "decode_attention": "src/repro/kernels/decode_attention.py:81",
     "matmul": "src/repro/kernels/matmul.py:42",
     "flash_attention": "src/repro/kernels/flash_attention.py:75",
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:330",
@@ -113,6 +136,7 @@ KERNELS = {
     "grouped_matmul": "src/repro/kernels/moe_gemm.py:55",
 }
 SOURCES = {
+    "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
     "matmul": "src/repro_torch/kernels/csrc/matmul.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "paged_decode_attention":
@@ -515,6 +539,120 @@ def flash_case(dtype: str, *, causal: bool = True, window=None, bh: int = 56,
     }
 
 
+def bf16_steps(got, want) -> float:
+    """max |got - want| in bf16 steps of its row's largest |want| (the
+    spacing of bf16 values at that magnitude)."""
+    import torch
+    err = (got.float() - want.float()).abs()
+    top = want.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+    step = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    return float((err / step).max())
+
+
+# (label, H, KV, D, W, pos of each row, window): head shapes of phi4-mini,
+# qwen2.5-3B, internlm2 and Mixtral; rings of 4096 slots with wrapped rows,
+# a ragged 1000-slot ring, rows at pos 0 (no valid key: the uniform mean),
+# a window below the ring width, and phi4's serving shape (the dense
+# serve's window of 1056 slots, B = 4)
+DENSE_CASES = (
+    ("phi4_serve", 24, 8, 128, 1056, (211, 530, 817, 1050), None),
+    ("phi4_ring", 24, 8, 128, 4096, (0, 1000, 4096, 6000), None),
+    ("phi4_ragged", 24, 8, 128, 1000, (1, 999, 1000, 2345), None),
+    ("qwen2_5_3b", 16, 2, 128, 4096, (64, 1024, 4095, 4500), None),
+    ("internlm2", 16, 8, 128, 1000, (0, 500, 1000, 1001), None),
+    ("mixtral_ring", 48, 8, 128, 4096, (1000, 4096, 4400, 9000), 4096),
+    ("mixtral_window", 48, 8, 128, 4096, (300, 2000, 4500, 9000), 512),
+)
+DENSE_F32_TOL = 1e-5  # fp32 rounding of the same sums in another order
+
+
+def dense_case(label: str, dtype: str, h: int, kv: int, d: int, w: int,
+               pos, window=None, seed: int = 0):
+    """The dense ring decode kernel at one shape: max error against its
+    plain version (f32: within DENSE_F32_TOL; bf16: within one bf16 step
+    of each row's largest |value|, both sides rounding an fp32 result),
+    the reading of the kernel run at pos - 1 (one key dropped), which must
+    fail the limit, times of the kernel, the plain version and SDPA over
+    the same ring with its validity mask, and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as kern
+
+    dev = torch.device("cuda")
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    b = len(pos)
+    q = torch.randn((b, h, d), generator=g, device=dev).to(dt)
+    kc = torch.randn((b, w, kv, d), generator=g, device=dev).to(dt)
+    vc = torch.randn((b, w, kv, d), generator=g, device=dev).to(dt)
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    run = lambda: kern.decode_attention(q, kc, vc, p, window=window)
+    plain = lambda: kern.decode_attention_plain(q, kc, vc, p, window=window)
+    before = kern.launches["decode_attention"]
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    if kern.launches["decode_attention"] != before + 1:
+        raise AssertionError("decode_attention: the wrapper did not count "
+                             "its launch")
+    err = float((got.float() - want.float()).abs().max())
+
+    def reading(x):
+        return (bf16_steps(x, want) if dtype == "bf16"
+                else float((x.float() - want.float()).abs().max()))
+
+    limit = 1.0 if dtype == "bf16" else DENSE_F32_TOL
+    if not bool(torch.isfinite(got.float()).all()) or reading(got) > limit:
+        raise AssertionError(f"decode_attention {label} {dtype}: reading "
+                             f"{reading(got)} > {limit} (max_abs_err "
+                             f"{err})")
+    bad = kern.decode_attention(q, kc, vc, p - 1, window=window)
+    planted = reading(bad)
+    if planted <= limit:
+        raise AssertionError(f"decode_attention {label} {dtype}: the kernel"
+                             f" at pos - 1 passes the limit ({planted})")
+
+    # SDPA over the same ring with the validity mask: the library's time
+    slot = torch.arange(w, device=dev)[None, :]
+    pl = p[:, None].long()
+    abs_pos = slot + torch.clamp(pl - 1 - slot, min=0) // w * w
+    valid = abs_pos < pl
+    if window is not None:
+        valid &= abs_pos >= pl - window
+    kh = kc.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
+    vh = vc.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
+    qh = q[:, :, None]  # (B, H, 1, D)
+    bias = torch.where(valid, 0.0, -1e30).to(dt)[:, None, None, :]
+    library = lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                     attn_mask=bias)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    ms = timed_ms(run, flush)
+    plain_ms = timed_ms(plain, flush)
+    library_ms = timed_ms(library, flush)
+
+    # least time: each valid key and value read once (a row with none
+    # averages all W values), q read once, out written once; 4 * D flops
+    # per (query head, valid key)
+    n_valid = valid.sum(-1)
+    elem = kc.element_size()
+    kv_bytes = float((n_valid * 2 + (n_valid == 0) * w).sum()) * kv * d * elem
+    nbytes = kv_bytes + 2 * q.numel() * elem + b * 4
+    flops = 4.0 * d * h * float(n_valid.sum()) \
+        + 2.0 * d * h * float(((n_valid == 0) * w).sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS["float32" if dtype == "f32" else "bfloat16"]
+    return {
+        "name": "decode_attention", "label": label, "dtype": dtype, "b": b,
+        "h": h, "kv": kv, "d": d, "w": w, "pos": list(pos),
+        "window": window, "max_abs_err": err, "reading": reading(got),
+        "limit": limit, "planted_fault": planted, "ms": ms,
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "flops": flops,
+    }
+
+
 # ------------------------------------------------------------------- serve
 
 
@@ -552,6 +690,28 @@ def read_counts(mods):
     for mod in mods:
         counts.update(mod.launches)
     return counts
+
+
+def dense_requests(vocab: int, seed: int, lens, max_new: int):
+    import numpy as np
+    from repro_torch.serve.scheduler import Request
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, n),
+                    max_new=max_new) for i, n in enumerate(lens)]
+
+
+def _window(reqs) -> int:
+    w = max(len(r.prompt) + r.max_new for r in reqs)
+    return -(-w // 16) * 16
+
+
+def dense_decode_launches(label, engine, counts, n_layers) -> None:
+    """Every decode step runs the dense kernel once per layer."""
+    steps = engine.counters["decode_steps"]
+    if steps == 0 or counts["decode_attention"] != n_layers * steps:
+        raise AssertionError(f"{label}: decode_attention launches "
+                             f"{counts['decode_attention']} != {n_layers} x "
+                             f"{steps} decode steps")
 
 
 def serve_run(label, mods, engine, params, reqs, vocab, need):
@@ -593,20 +753,41 @@ def serve_run(label, mods, engine, params, reqs, vocab, need):
     return out, counts, wall
 
 
-def f32_equality(label, mods, cfg, params, reqs, need, trim=False):
+def profiled_serve(label, engine, params, reqs, wall=None) -> None:
+    """A serve on a fresh engine under torch.profiler: the device-busy
+    share of its wall and the kernels that took the most device time.
+    ``wall``: the unprofiled wall of the same serve, when it ran."""
+    import torch
+    from repro_torch.launch.serve import print_profile
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        engine.run(params, reqs)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    log(f"profile[{label}]: {len(reqs)} requests"
+        + ("" if wall is None else
+           f", unprofiled wall of the same run {wall:.3f}s"))
+    print_profile(prof, prof_wall)
+
+
+def f32_equality(label, mods, cfg, params, reqs, need, trim=False,
+                 paged=True, pertoken=None):
     """Greedy tokens through the kernels equal the plain path's (f32,
-    TF32 off). With ``trim``, both runs must have trimmed pages."""
+    TF32 off). With ``trim``, both runs must have trimmed pages. With
+    ``paged=False`` the runs take the dense backend, whose decode launches
+    the dense kernel once per layer and step; ``pertoken`` is a batch that
+    generate_pertoken must then decode to equal tokens too."""
     import torch
     from repro_torch.models.blocks import ModelContext
     from repro_torch.serve.engine import ServeEngine
-    window = max(len(r.prompt) + r.max_new for r in reqs)
-    window = -(-window // 16) * 16
-    outs = {}
+    outs, pert = {}, {}
     for impl in ("cuda", "ref"):
         ctx = ModelContext(compute_dtype=torch.float32, attn_impl=impl,
                            device="cuda")
-        engine = ServeEngine(cfg, ctx, window=window, max_batch=4, chunk=8,
-                             page_size=16)
+        engine = ServeEngine(cfg, ctx, window=_window(reqs), max_batch=4,
+                             chunk=8, page_size=16, paged=paged)
         outs[impl], counts, _ = serve_run(
             f"{label}_f32_{impl}", mods, engine, params,
             [type(r)(rid=r.rid, prompt=r.prompt, max_new=r.max_new)
@@ -616,13 +797,30 @@ def f32_equality(label, mods, cfg, params, reqs, need, trim=False):
         if trim and engine.counters["pages_trimmed"] == 0:
             raise AssertionError(f"{label} {impl}: the window trimmed no "
                                  f"page")
+        if impl == "cuda" and not paged:
+            dense_decode_launches(f"{label}_f32", engine, counts,
+                                  cfg.n_layers)
+        if pertoken is not None:
+            reset_counts(mods)
+            pert[impl] = engine.generate_pertoken(
+                params, {"tokens": pertoken}, max_new=16).cpu()
+            c = read_counts(mods)
+            used = c["flash_attention"] > 0 and c["decode_attention"] > 0
+            if used != (impl == "cuda") or (impl == "ref"
+                                            and any(c.values())):
+                raise AssertionError(f"{label} generate_pertoken {impl}: "
+                                     f"launches {c}")
     for rid in outs["cuda"]:
         if not (outs["cuda"][rid] == outs["ref"][rid]).all():
             raise AssertionError(f"{label} f32 request {rid}: cuda tokens "
                                  f"{outs['cuda'][rid]} != ref "
                                  f"{outs['ref'][rid]}")
+    if pertoken is not None and not torch.equal(pert["cuda"], pert["ref"]):
+        raise AssertionError(f"{label} f32 generate_pertoken: cuda "
+                             f"{pert['cuda']} != ref {pert['ref']}")
     log(f"serve[{label}_f32]: greedy tokens through the kernels equal the "
-        f"plain path's")
+        f"plain path's" + ("" if paged else " on the dense backend")
+        + (" (run and generate_pertoken)" if pertoken is not None else ""))
 
 
 def serve_qwen(mods):
@@ -668,12 +866,12 @@ def serve_qwen(mods):
 
 
 def serve_mixtral(mods):
-    """This slice's path: Mixtral-8x22B at full width and cut depth
-    through the paged and grouped-GEMM kernels. Returns the launch counts
-    of its bf16 run."""
+    """Slice 2's path: Mixtral-8x22B at full width and cut depth through
+    the paged and grouped-GEMM kernels, then its dense ring serve through
+    the flash, grouped-GEMM and dense decode kernels. Returns the launch
+    counts of the paged and the ring bf16 runs."""
     import torch
     from repro_torch.configs.registry import get_arch
-    from repro_torch.launch.serve import print_profile
     from repro_torch.models import api
     from repro_torch.models.blocks import ModelContext
     from repro_torch.models.moe import moe_ffn, quantize_moe_params
@@ -697,8 +895,7 @@ def serve_mixtral(mods):
         f"{time.perf_counter() - t0:.1f}s")
     # one prompt past the 4096-token window, so decode trims its pages
     reqs = lambda: serve_requests(cfg.vocab_size, seed=0, long_prompt=4500)
-    window = max(len(r.prompt) + r.max_new for r in reqs())
-    window = -(-window // 16) * 16
+    window = _window(reqs())
     every = ("paged_decode_attention", "paged_decode_span_attention",
              "grouped_matmul")
     counts, wall = None, None
@@ -717,19 +914,10 @@ def serve_mixtral(mods):
             raise AssertionError(f"{label}: the window trimmed no page")
         if counts is None:
             counts, wall = c, w
-    # the bf16 run once more under the profiler: device-busy share
     ctx = ModelContext(compute_dtype=torch.bfloat16, device=device)
-    engine = ServeEngine(cfg, ctx, window=window, max_batch=4, chunk=8,
-                         page_size=16)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        engine.run(params, reqs())
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    log(f"  unprofiled wall of the same run {wall:.3f}s")
-    print_profile(prof, prof_wall)
+    profiled_serve("mixtral_bf16", ServeEngine(
+        cfg, ctx, window=window, max_batch=4, chunk=8, page_size=16),
+        params, reqs(), wall)
 
     # one layer's experts in int8 through moe_ffn: kernel against plain
     mlp = quantize_moe_params(tree_index(params["blocks"]["sl0"]["mlp"], 0))
@@ -760,7 +948,31 @@ def serve_mixtral(mods):
     log(f"mixtral int8 experts (one layer, 128 tokens): moe_ffn cuda vs "
         f"ref max_abs_err={err:.3e} (max |out| {big:.3e}, limit 2^-6 of "
         f"it); no host sync in the cuda call")
-    del params, mlp
+    del mlp
+
+    # the dense backend: the 4096-token window makes each layer's cache a
+    # 4096-slot ring; prompts past it roll into the ring at prefill, and
+    # the 4080- and 4095-token rows wrap during decode
+    ring = dense_requests(cfg.vocab_size, 3,
+                          (3000, 4080, 4200, 4500, 3500, 4095), 32)
+    ctx = ModelContext(compute_dtype=torch.bfloat16, device=device)
+    ring_engine = lambda: ServeEngine(cfg, ctx, window=_window(ring),
+                                      max_batch=4, chunk=8, paged=False)
+    engine = ring_engine()
+    w = engine.kv.cache["blocks"]["sl0"]["k"].shape[2]
+    if engine.chunk_prefill or w != cfg.sliding_window:
+        raise AssertionError(f"mixtral ring: width {w}, chunk_prefill "
+                             f"{engine.chunk_prefill}")
+    _, ring_counts, wall = serve_run(
+        "mixtral_ring_bf16", mods, engine, params, ring, cfg.vocab_size,
+        ("flash_attention", "grouped_matmul", "decode_attention"))
+    dense_decode_launches("mixtral_ring_bf16", engine, ring_counts,
+                          cfg.n_layers)
+    log(f"  ring of {w} slots in a window of {engine.window}")
+    profiled_serve("mixtral_ring_bf16", ring_engine(), params,
+                   dense_requests(cfg.vocab_size, 3,
+                                  [len(r.prompt) for r in ring], 32), wall)
+    del params, engine
     torch.cuda.empty_cache()
 
     # f32 (TF32 off) at fewer layers: kernels == plain path, token for
@@ -772,6 +984,85 @@ def serve_mixtral(mods):
     for r in short[:4]:
         r.prompt = r.prompt[:160]
     f32_equality("mixtral", mods, cfg32, params, short, every, trim=True)
+    ring = dense_requests(cfg32.vocab_size, 4, (4090, 4200, 3000), 16)
+    f32_equality("mixtral_ring", mods, cfg32, params, ring,
+                 ("flash_attention", "grouped_matmul", "decode_attention"),
+                 paged=False)
+    del params
+    torch.cuda.empty_cache()
+    return counts, ring_counts
+
+
+# ------------------------------------------------------------ dense serve
+
+
+def serve_dense(mods):
+    """This slice's path: full-width, full-depth phi4-mini-3.8B on the
+    dense backend, its decode through the dense ring kernel. Returns the
+    launch counts of its bf16 run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import api
+    from repro_torch.models.blocks import ModelContext
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_arch("phi4_mini_3_8b")
+    t0 = time.perf_counter()
+    params = init_params(api.model_specs(cfg), seed=0, dtype=torch.bfloat16,
+                         device="cuda")
+    torch.cuda.synchronize()
+    gb = sum(p.numel() * p.element_size() for p in _leaves(params)) / 1e9
+    log(f"phi4: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.resolved_head_dim}, "
+        f"vocab {cfg.vocab_size}; {gb:.2f} GB of bf16 weights made in "
+        f"{time.perf_counter() - t0:.1f}s")
+    lens = (64, 1024, 300, 700, 128, 900, 512, 256)
+    reqs = dense_requests(cfg.vocab_size, 0, lens, 32)
+    ctx = ModelContext(compute_dtype=torch.bfloat16, device="cuda")
+    make = lambda: ServeEngine(cfg, ctx, window=_window(reqs), max_batch=4,
+                               chunk=8, paged=False)
+    engine = make()
+    if not engine.chunk_prefill:
+        raise AssertionError("phi4 dense: expected the chunked span prefill")
+    _, counts, _ = serve_run("phi4_dense_bf16", mods, engine, params, reqs,
+                             cfg.vocab_size, ("decode_attention",))
+    dense_decode_launches("phi4_dense_bf16", engine, counts, cfg.n_layers)
+    log(f"  decode_attention launches {counts['decode_attention']} = "
+        f"{cfg.n_layers} layers x {engine.counters['decode_steps']} decode "
+        f"steps; span-prefill calls "
+        f"{engine.counters['prefill_span_calls']}, span shapes "
+        f"{engine.counters['span_prefill_dense_compiles']}")
+    # two of the requests (64 and 128 prompt tokens) once more under the
+    # profiler: a profile of all eight holds ~300K device events, whose
+    # processing took minutes of the host
+    profiled_serve("phi4_dense_bf16", make(), params,
+                   dense_requests(cfg.vocab_size, 0, lens, 32)[::4])
+
+    batch = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 256))
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    toks = engine.generate_pertoken(params, {"tokens": batch}, max_new=16)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = read_counts(mods)
+    if (tuple(toks.shape) != (2, 16) or int(toks.min()) < 0
+            or int(toks.max()) >= cfg.vocab_size
+            or c["flash_attention"] != cfg.n_layers
+            or c["decode_attention"] != cfg.n_layers * 16):
+        raise AssertionError(f"phi4 generate_pertoken: {toks} launches {c}")
+    log(f"phi4 generate_pertoken (2 x 256 prompt, 16 new): {wall:.3f}s "
+        f"launches={c}")
+    del params, engine
+    torch.cuda.empty_cache()
+
+    # f32 (TF32 off) at 4 layers: kernels == plain path, token for token
+    cfg4 = dataclasses.replace(cfg, n_layers=4)
+    params = init_params(api.model_specs(cfg4), seed=1, device="cuda")
+    short = dense_requests(cfg4.vocab_size, 1, (64, 200, 333, 150, 97), 16)
+    f32_equality("phi4", mods, cfg4, params, short, ("decode_attention",),
+                 paged=False, pertoken=batch[:, :100])
     del params
     torch.cuda.empty_cache()
     return counts
@@ -862,8 +1153,7 @@ def serve_resilient(mods):
 
     cfg = get_arch("qwen2_0_5b")
     reqs = lambda **kw: resilient_requests(cfg.vocab_size, **kw)
-    window = max(len(r.prompt) + r.max_new for r in reqs())
-    window = -(-window // 16) * 16
+    window = _window(reqs())
     paged = ("paged_decode_attention", "paged_decode_span_attention")
 
     def engine(dtype, draft_k, faults=None, admission=None):
@@ -1229,6 +1519,13 @@ def main() -> int:
                                     t=1, **mix_attn))
         variants.append(kernel_case(kern, "paged_decode_span_attention",
                                     pages, t=128, **mix_attn))
+    # phi4-mini's heads: 3 query heads per KV head, D=128, B=4
+    phi4_attn = dict(b=4, h=24, kv=8, d=128, max_ctx=1024)
+    for pages in ("bf16", "f32"):
+        variants.append(kernel_case(kern, "paged_decode_attention", pages,
+                                    t=1, **phi4_attn))
+        variants.append(kernel_case(kern, "paged_decode_span_attention",
+                                    pages, t=128, **phi4_attn))
     for v in variants:
         log(f"kernel {v['name']} pages={v['pages']} t={v['t']} b={v['b']} "
             f"h={v['h']}/{v['kv']} d={v['d']} window={v['window']} "
@@ -1290,13 +1587,28 @@ def main() -> int:
             f"ms={v['ms']:.4f} plain_ms={v['plain_ms']:.4f} "
             f"library_ms={v['library_ms']:.4f} (torch.matmul) "
             f"bound_ms={v['bound_ms']:.5f} ({v['bound_by']})")
+    denses = [dense_case(label, dt, h, kv, d, w, pos, window)
+              for label, h, kv, d, w, pos, window in DENSE_CASES
+              for dt in ("bf16", "f32")]
+    for v in denses:
+        log(f"kernel decode_attention {v['label']} {v['dtype']} b={v['b']} "
+            f"h={v['h']}/{v['kv']} d={v['d']} W={v['w']} pos={v['pos']} "
+            f"window={v['window']}: max_abs_err={v['max_abs_err']:.3e} "
+            f"reading={v['reading']:.3e} (limit {v['limit']}) "
+            f"planted_fault(pos-1)={v['planted_fault']:.3e} "
+            f"ms={v['ms']:.4f} plain_ms={v['plain_ms']:.4f} "
+            f"library_ms={v['library_ms']:.4f} (SDPA) "
+            f"bound_ms={v['bound_ms']:.5f} ({v['bound_by']})")
     log(f"kernels phase done at {time.perf_counter() - t_start:.1f}s")
 
     # 4-5. the serving paths, each with the counts read around its runs
     counts = {"qwen2_0_5b": serve_qwen(mods)}
     log(f"qwen phase done at {time.perf_counter() - t_start:.1f}s")
-    counts[f"mixtral_8x22b_{MIXTRAL_LAYERS}l"] = serve_mixtral(mods)
+    (counts[f"mixtral_8x22b_{MIXTRAL_LAYERS}l"],
+     counts[f"mixtral_8x22b_{MIXTRAL_LAYERS}l_ring"]) = serve_mixtral(mods)
     log(f"mixtral phase done at {time.perf_counter() - t_start:.1f}s")
+    counts["phi4_mini_3_8b_dense"] = serve_dense(mods)
+    log(f"dense phase done at {time.perf_counter() - t_start:.1f}s")
     counts["qwen2_0_5b_bist"], counts["qwen2_0_5b_chaos"] = \
         serve_resilient(mods)
     log(f"resilient serve phase done at {time.perf_counter() - t_start:.1f}s")
@@ -1306,11 +1618,12 @@ def main() -> int:
 
     # one line for every kernel: launches on the path that runs it (matmul:
     # the startup self-test; flash: the bf16 training run; paged and
-    # grouped: the Mixtral bf16 serve), a representative at that path's
-    # shapes (matmul: f32 128^3; flash: bf16 causal at the training shape;
-    # paged: bf16 pages at Mixtral's shapes, decode and the span at T=128;
-    # grouped: bf16, a 4-token decode step's up projection), and every
-    # variant measured
+    # grouped: the Mixtral bf16 serve; dense decode: the phi4 dense serve),
+    # a representative at that path's shapes (matmul: f32 128^3; flash:
+    # bf16 causal at the training shape; paged: bf16 pages at Mixtral's
+    # shapes, decode and the span at T=128; grouped: bf16, a 4-token decode
+    # step's up projection; dense decode: bf16 at phi4's serving shape),
+    # and every variant measured
     kernels = []
     for kname, replaces in KERNELS.items():
         main_path = serve_path
@@ -1327,6 +1640,15 @@ def main() -> int:
             rep = flashes[0]
             keys = ("dtype", "bh", "s", "d", "causal", "window",
                     "max_abs_err", "row_steps", "planted_fault", "ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by")
+        elif kname == "decode_attention":
+            main_path = counts["phi4_mini_3_8b_dense"]
+            mine = denses
+            rep = [v for v in mine if v["label"] == "phi4_serve"
+                   and v["dtype"] == "bf16"][0]
+            keys = ("label", "dtype", "b", "h", "kv", "d", "w", "pos",
+                    "window", "max_abs_err", "reading", "limit",
+                    "planted_fault", "ms", "plain_ms", "library_ms",
                     "bound_ms", "bound_by")
         elif kname == "grouped_matmul":
             mine = gemms

@@ -1,12 +1,15 @@
-"""Paged decode and span attention on Hopper: wrappers of the CUDA kernels
-in ``csrc/paged_attention.cu`` and their plain-torch versions.
+"""Decode attention on Hopper: wrappers of the CUDA kernels in
+``csrc/decode_attention.cu`` (dense ring caches) and
+``csrc/paged_attention.cu`` (the page pool), and their plain-torch
+versions.
 
-Port of ``repro/kernels/decode_attention.py``'s ``paged_decode_attention``
-and ``paged_decode_span_attention`` (the Pallas page streams). A wrapper
-given CPU tensors computes the plain version (gather the pages, attend in
-torch); given CUDA tensors it launches the kernel or raises. Each launch
-adds one to ``launches[name]``, so a run can show which kernels its main
-path went through.
+Port of ``repro/kernels/decode_attention.py``'s ``decode_attention`` (one
+query against a dense ring cache), ``paged_decode_attention`` and
+``paged_decode_span_attention`` (the Pallas page streams). A wrapper given
+CPU tensors computes the plain version (the ring oracle; gather the pages,
+then attend in torch); given CUDA tensors it launches the kernel or
+raises. Each launch adds one to ``launches[name]``, so a run can show
+which kernels its main path went through.
 """
 
 from __future__ import annotations
@@ -21,7 +24,9 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.build import load
 
 SOURCE = "paged_attention.cu"
-launches: Dict[str, int] = {"paged_decode_attention": 0,
+DENSE_SOURCE = "decode_attention.cu"
+launches: Dict[str, int] = {"decode_attention": 0,
+                            "paged_decode_attention": 0,
                             "paged_decode_span_attention": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -193,4 +198,98 @@ def paged_decode_span_attention(q: torch.Tensor, k_pages: torch.Tensor,
     out = _launch(q, k_pages, v_pages, page_table, pos, k_scale, v_scale,
                   window, pos_offset=0)
     launches["paged_decode_span_attention"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Dense ring caches
+# ---------------------------------------------------------------------------
+
+_DENSE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _dense_lib() -> ctypes.CDLL:
+    lib = load(DENSE_SOURCE)
+    if lib.decode_attention.argtypes is None:
+        lib.decode_attention.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        lib.decode_attention.restype = ctypes.c_int
+        lib.decode_attention_splits.argtypes = [ctypes.c_int] * 4
+        lib.decode_attention_splits.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=256)
+def _dense_splits(b: int, kv: int, w: int, num_sms: int) -> int:
+    return _dense_lib().decode_attention_splits(b, kv, w, num_sms)
+
+
+def _check_dense(q, k_cache, v_cache, pos, window) -> None:
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"kernel needs CUDA tensors, got q on {dev}")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("pos", pos)):
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, q on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in _DENSE_CODE:
+        raise ValueError(f"q dtype {q.dtype} not in (float32, bfloat16)")
+    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+        raise ValueError(f"cache dtypes {k_cache.dtype}/{v_cache.dtype} "
+                         f"differ from q's {q.dtype}")
+    if q.dim() != 3 or k_cache.dim() != 4:
+        raise ValueError(f"shapes q {tuple(q.shape)} cache "
+                         f"{tuple(k_cache.shape)}, want (B,H,D), "
+                         f"(B,W,KV,D)")
+    b, h, d = q.shape
+    bc, w, kv, dc = k_cache.shape
+    if (v_cache.shape != k_cache.shape or bc != b or dc != d or w < 1
+            or h % kv):
+        raise ValueError(f"shapes q {tuple(q.shape)} caches "
+                         f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}")
+    if pos.dtype != torch.int32 or pos.shape != (b,):
+        raise ValueError(f"pos {pos.dtype} {tuple(pos.shape)}, "
+                         f"want int32 ({b},)")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+
+
+def decode_attention_plain(q, k_cache, v_cache, pos, *,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """The ring oracle: the kernel's plain version."""
+    return ref.decode_attention_ref(q, k_cache, v_cache, pos, window=window)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: torch.Tensor, *,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """q: (B,H,D); caches (B,W,KV,D) ring-addressed (slot i holds position
+    i + W * wraps), f32 or bf16 like q; pos (B,) int32 valid token count.
+    Returns (B,H,D) in q's dtype."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, pos,
+                                      window=window)
+    _check_dense(q, k_cache, v_cache, pos, window)
+    b, h, d = q.shape
+    w, kv = k_cache.shape[1], k_cache.shape[2]
+    splits = _dense_splits(b, kv, w, _num_sms(q.device.index))
+    out = torch.empty_like(q)
+    work = None
+    if splits > 1:  # partial softmax states of the key-range splits
+        work = torch.empty(splits * b * h * (d + 2), dtype=torch.float32,
+                           device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _dense_lib().decode_attention(
+        _DENSE_CODE[q.dtype], q.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        None if work is None else work.data_ptr(), b, h, kv, d, w,
+        0 if window is None else int(window), float(d ** -0.5), splits,
+        stream)
+    if rc != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed: "
+                           f"cudaError {rc}")
+    launches["decode_attention"] += 1
     return out

@@ -1,11 +1,12 @@
 """Public kernel entry points with an implementation switch
 (``repro/kernels/ops.py`` without the mesh branches): the tiled matmul,
-flash attention, paged attention and the m-grouped MoE GEMM.
+flash attention, dense ring decode attention, paged attention and the
+m-grouped MoE GEMM.
 
 ``impl="cuda"`` launches the hand-written Hopper kernel and needs CUDA
 tensors; ``impl="ref"`` runs the plain-torch oracle (an f32 dot; the full
-softmax; gather the pages, then attend; one f32 product per expert) on any
-device.
+softmax; the ring-masked softmax; gather the pages, then attend; one f32
+product per expert) on any device.
 Model code picks the impl through ``ModelContext.attn_impl`` (and
 ``moe_impl``).
 """
@@ -52,6 +53,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return _ref.flash_attention_ref(q, k, v, causal=causal,
                                         window=window)
     return _flash.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: torch.Tensor, *,
+                     impl: str = "cuda",
+                     window: Optional[int] = None) -> torch.Tensor:
+    """q: (B,H,D); ring caches (B,W,KV,D); pos (B,) int32 valid count.
+    Returns (B,H,D)."""
+    _cuda_only(q, impl)
+    if impl == "ref":
+        return _kernels.decode_attention_plain(q, k_cache, v_cache, pos,
+                                               window=window)
+    return _kernels.decode_attention(q, k_cache, v_cache, pos,
+                                     window=window)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,

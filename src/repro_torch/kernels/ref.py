@@ -1,6 +1,6 @@
-"""Plain-torch twins of the matmul, flash-attention, paged-attention and
-grouped-GEMM oracles in ``repro/kernels/ref.py`` (the correctness
-contract of the CUDA kernels).
+"""Plain-torch twins of the matmul, flash-attention, dense ring decode,
+paged-attention and grouped-GEMM oracles in ``repro/kernels/ref.py`` (the
+correctness contract of the CUDA kernels).
 
 They materialize what the kernels never do: the (S, S) score matrix, each
 request's contiguous KV view, gathered (and dequantized) from the page

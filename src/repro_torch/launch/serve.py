@@ -1,4 +1,6 @@
-"""Serving driver of the port: the paged engine over a request trace.
+"""Serving launcher of the port: the engine over a request trace, on the
+paged KV backend where the family supports it (dense caches otherwise),
+as the reference launcher picks it.
 
 Two modes, as ``repro.launch.serve``:
 
@@ -218,6 +220,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         params = quantize_weights(params, {"fp8": torch.float8_e4m3fn,
                                            "int8": torch.int8}[args.quantize])
     window = args.prompt_len + args.max_new
+    paged = api.supports_paged_decode(cfg)
     tracer = SpanTracer() if args.trace_out else None
     faults = None
     if args.chaos is not None:  # the reference launcher's plan
@@ -234,15 +237,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         return ServeEngine(
             cfg, ctx, window=window, max_batch=args.max_batch,
             chunk=args.chunk, page_size=args.page_size,
-            temperature=args.temperature, draft_k=args.draft_k,
-            prefix_cache=not args.no_prefix_cache,
+            temperature=args.temperature,
+            draft_k=args.draft_k if paged else 0,
+            prefix_cache=paged and not args.no_prefix_cache,
             prefill_chunk=args.prefill_chunk, tracer=tracer,
             faults=faults, admission=admission)
 
     engine = make_engine()
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
-    where = f"paged on {device}"
+    where = f"{'paged' if engine.paged else 'dense'} on {device}"
 
     if args.trace:
         trace = lambda: make_trace(args.trace, cfg.vocab_size, args.seed,

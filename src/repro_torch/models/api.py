@@ -1,5 +1,6 @@
 """Family-agnostic model API of the port (``repro.models.api``): specs,
-the training loss and paged serving of decoder-only models."""
+the training loss, and serving of decoder-only models on dense caches
+(prefill, decode, span decode) and on the paged pool."""
 
 from __future__ import annotations
 
@@ -10,18 +11,55 @@ from repro_torch.models.blocks import ModelContext
 from repro_torch.models.config import ModelConfig
 
 
-def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
+def _require_decoder_only(cfg: ModelConfig) -> None:
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models are not ported yet")
+
+
+def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    _require_decoder_only(cfg)
     return lm.lm_specs(cfg)
 
 
 def loss_fn(params, batch, cfg: ModelConfig, ctx: ModelContext):
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet")
+    _require_decoder_only(cfg)
     return lm.lm_loss(params, batch, cfg, ctx)
+
+
+def cache_spec(cfg: ModelConfig, batch: int, window: int,
+               ctx: ModelContext) -> Dict[str, Any]:
+    _require_decoder_only(cfg)
+    return lm.lm_cache_spec(cfg, batch, window, ctx)
+
+
+def prefill_fn(params, batch, cfg: ModelConfig, ctx: ModelContext,
+               window: int, logits_at=None, pad_left=None):
+    """Full-prompt prefill into fresh dense caches. ``logits_at`` (B,):
+    the position whose logits to return (default: the last)."""
+    _require_decoder_only(cfg)
+    if batch.get("positions") is not None:
+        raise NotImplementedError("mrope position rows are not ported yet")
+    return lm.lm_prefill(params, batch["tokens"], cfg, ctx, window,
+                         logits_at=logits_at, pad_left=pad_left)
+
+
+def decode_fn(params, token, cache, cfg: ModelConfig, ctx: ModelContext):
+    """One decode step against dense caches (updated in place)."""
+    _require_decoder_only(cfg)
+    return lm.lm_decode_step(params, token, cache, cfg, ctx)
+
+
+def decode_span_fn(params, tokens, cache, cfg: ModelConfig,
+                   ctx: ModelContext, logits_at=None):
+    """T-token span decode against dense caches holding absolute slots;
+    ``cache["pos"]`` may be negative (dead front padding, see
+    lm.lm_decode_span). ``logits_at`` (B,) gathers one position's logits
+    before the lm head."""
+    if cfg.is_encoder_decoder:
+        raise ValueError(f"{cfg.name}: span decode requires decoder-only")
+    return lm.lm_decode_span(params, tokens, cache, cfg, ctx,
+                             logits_at=logits_at)
 
 
 def supports_paged_decode(cfg: ModelConfig) -> bool:

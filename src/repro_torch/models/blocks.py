@@ -1,12 +1,18 @@
-"""Sublayer specs, the training forward and the paged decode datapath
+"""Sublayer specs, the training forward and the serving datapaths
 (``repro.models.blocks``).
 
 A *block* is ``block_len`` sublayers; parameters of all blocks are
 stacked on a leading ``n_blocks`` axis, and lm.py runs a Python loop over
 that axis where the reference runs ``lax.scan``. Only pure-attention
 decoders are ported: attention + dense-FFN or MoE specs, the full-
-sequence forward of the training loss, the paged pool layout, int8 page
-quantization, and one-token / T-token decode against the pool.
+sequence forward of the training loss, and two KV layouts for serving:
+
+  * dense per-slot caches: k/v of shape (B, W, KV, D), a ring when a
+    sliding window makes W smaller than the serve window (slot =
+    position % W); full-prompt prefill, one-token decode and T-token
+    span decode against them;
+  * the paged pool: int8 page quantization, and one-token / T-token
+    decode against the pool.
 
 Pages are a shared pool per layer: k/v of shape (num_pages, page_size, KV,
 D), plus (num_pages, page_size, KV) bf16 scale pages when the cache dtype
@@ -48,7 +54,9 @@ class ModelContext:
     ``device`` defaults to the card (raising when there is none);
     ``attn_impl`` defaults to "cuda" on a CUDA device and "ref" (the
     gather / q-chunked paths of models/attention.py) on the CPU;
-    ``q_chunk`` bounds the plain path's query chunk. ``moe_dispatch`` is
+    ``q_chunk`` bounds the plain path's query chunk.
+    ``full_cache_window`` keeps absolute (non-ring) dense KV slots even
+    for sliding-window archs. ``moe_dispatch`` is
     the serving MoE dispatch: "grouped" (sort-based dropless through the
     grouped GEMM; the default) or "capacity" (the dropless capacity
     buffer); ``moe_impl=None`` derives the GEMM impl from attn_impl."""
@@ -57,6 +65,7 @@ class ModelContext:
                  q_chunk: int = 2048,
                  attn_impl: Optional[str] = None,
                  decode_cache_dtype: Optional[torch.dtype] = None,
+                 full_cache_window: bool = False,
                  device: DeviceLike = None,
                  moe_dispatch: str = "grouped",
                  moe_impl: Optional[str] = None):
@@ -72,6 +81,7 @@ class ModelContext:
         self.q_chunk = q_chunk
         self.attn_impl = attn_impl
         self.decode_cache_dtype = decode_cache_dtype  # None -> compute
+        self.full_cache_window = full_cache_window
         if moe_dispatch not in ("grouped", "capacity"):
             raise ValueError(f"moe_dispatch must be 'grouped' or "
                              f"'capacity', got {moe_dispatch!r}")
@@ -296,9 +306,14 @@ def _table_lookup(page_table: Tensor, bidx: Tensor, posn: Tensor,
 
 
 def _attn_out_mlp(p, x, out, cfg: ModelConfig, ctx: ModelContext,
-                  idx: int) -> Tensor:
+                  idx: int, live: Optional[Tensor] = None) -> Tensor:
+    """o-projection, residual, norm, MLP/MoE, residual. ``live`` (B,T)
+    zeroes both sublayer outputs at dead positions, so the residual
+    stream stays exactly 0 there."""
     dtype = ctx.compute_dtype
     core = torch.einsum("bshk,hkd->bsd", out, p["core"]["wo"].to(dtype))
+    if live is not None:
+        core = torch.where(live[..., None], core, 0.0)
     x = x + core
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.sublayer_has_moe(idx):
@@ -306,6 +321,8 @@ def _attn_out_mlp(p, x, out, cfg: ModelConfig, ctx: ModelContext,
                          **ctx.moe_kwargs())
     else:
         mlp = dense_ffn(p["mlp"], h, cfg, dtype)
+    if live is not None:
+        mlp = torch.where(live[..., None], mlp, 0.0)
     return x + mlp
 
 
@@ -385,3 +402,145 @@ def block_decode_span_paged(block_params, x, pages, page_table, pos, live,
             block_params[f"sl{i}"], x, pages[f"sl{i}"], page_table, pos,
             live, cfg, ctx, i)
     return x, pages
+
+
+# ---------------------------------------------------------------------------
+# Dense per-slot caches (prefill / decode / span decode)
+# ---------------------------------------------------------------------------
+
+
+def sublayer_cache_spec(cfg: ModelConfig, idx: int, batch: int, window: int,
+                        ctx: ModelContext) -> Dict[str, TensorSpec]:
+    """Ring-buffered k/v of an attention sublayer: (batch, W, KV, D) with
+    W = min(window, sliding window) unless ``ctx.full_cache_window``."""
+    kind = cfg.sublayer_kinds()[idx]
+    if kind != "attn":
+        raise NotImplementedError(
+            f"{cfg.name}: {kind} caches are not ported yet (ROADMAP.md "
+            f"Queue A item 2)")
+    w = window
+    if cfg.sliding_window is not None and not ctx.full_cache_window:
+        w = min(window, cfg.sliding_window)
+    shape = (batch, w, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": TensorSpec(shape, ctx.cache_dtype),
+            "v": TensorSpec(shape, ctx.cache_dtype)}
+
+
+def block_cache_spec(cfg: ModelConfig, batch: int, window: int,
+                     ctx: ModelContext) -> Dict[str, Any]:
+    return {f"sl{i}": sublayer_cache_spec(cfg, i, batch, window, ctx)
+            for i in range(cfg.block_len)}
+
+
+def init_cache(spec: Any, device: torch.device) -> Any:
+    """Zero tensors for a tree of TensorSpecs."""
+    if isinstance(spec, TensorSpec):
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+    return {k: init_cache(v, device) for k, v in spec.items()}
+
+
+def sublayer_prefill(p, x: Tensor, cache: Dict[str, Tensor],
+                     cfg: ModelConfig, ctx: ModelContext, idx: int,
+                     seq_mask: Optional[Tensor] = None
+                     ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Full-sequence forward that fills the cache. x: (B,S,D); ``cache``
+    holds zeros of the spec's shape and is filled in place. With S past
+    the cache width W only the last W positions are kept, rolled so that
+    position p sits in slot p % W."""
+    if seq_mask is not None:
+        raise ValueError(
+            "seq_mask (front padding) requires a state-family stack; "
+            "attention positions would shift")
+    dtype = ctx.compute_dtype
+    b, s, _ = x.shape
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _project_qkv(p["core"], h, cfg, dtype)
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k = apply_positional(q, k, cfg, positions)
+    out = full_attention(q, k, v, cfg, q_chunk=ctx.q_chunk,
+                         impl=ctx.attn_impl)
+    w = cache["k"].shape[1]
+    for name, val in (("k", k), ("v", v)):
+        if w >= s:
+            cache[name][:, :s] = val.to(ctx.cache_dtype)
+        else:
+            start = s - w
+            cache[name].copy_(torch.roll(val[:, start:], start % w, dims=1))
+    return _attn_out_mlp(p, x, out, cfg, ctx, idx), cache
+
+
+def sublayer_decode(p, x: Tensor, cache: Dict[str, Tensor], pos: Tensor,
+                    cfg: ModelConfig, ctx: ModelContext, idx: int
+                    ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """One-token decode. x: (B,1,D); pos: (B,) int32 valid-token count
+    BEFORE this token. Each row writes its own ring slot pos % W in place,
+    then attends over its valid slots."""
+    dtype = ctx.compute_dtype
+    b = x.shape[0]
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _project_qkv(p["core"], h, cfg, dtype)
+    q, k = apply_positional(q, k, cfg, pos[:, None])
+    w = cache["k"].shape[1]
+    bidx = torch.arange(b, device=x.device)
+    slot = (pos % w).long()
+    cache["k"][bidx, slot] = k[:, 0].to(ctx.cache_dtype)
+    cache["v"][bidx, slot] = v[:, 0].to(ctx.cache_dtype)
+    kc, vc = cache["k"].to(dtype), cache["v"].to(dtype)  # no copy if equal
+    if ctx.attn_impl == "cuda":
+        # the kernel reads the ring as it is stored
+        out = kops.decode_attention(
+            q[:, 0].contiguous(), kc, vc, pos + 1, impl="cuda",
+            window=cfg.sliding_window)[:, None]
+    else:
+        out = decode_attention(q, kc, vc, pos + 1, cfg)
+    return _attn_out_mlp(p, x, out, cfg, ctx, idx), cache
+
+
+def sublayer_decode_span(p, x: Tensor, cache: Dict[str, Tensor],
+                         pos: Tensor, live: Tensor, cfg: ModelConfig,
+                         ctx: ModelContext, idx: int
+                         ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """T-token span decode against dense per-slot caches.
+
+    x: (B,T,D) at absolute positions ``pos .. pos+T-1``, already zeroed
+    at dead positions; live: (B,T) bool. The caches hold absolute slots
+    (W >= total length, no ring wrap): k/v land at their position, writes
+    of dead (or out-of-range) positions are dropped. Every sublayer output
+    is re-masked, so the residual stream stays exactly 0 at dead
+    positions."""
+    dtype = ctx.compute_dtype
+    b, t, _ = x.shape
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _project_qkv(p["core"], h, cfg, dtype)
+    posn = pos[:, None] + torch.arange(t, device=x.device,
+                                       dtype=pos.dtype)[None, :]
+    q, k = apply_positional(q, k, cfg, posn)
+    w = cache["k"].shape[1]
+    bi, ti = torch.nonzero(live & (posn >= 0) & (posn < w), as_tuple=True)
+    slot = posn[bi, ti].long()
+    cache["k"][bi, slot] = k[bi, ti].to(ctx.cache_dtype)
+    cache["v"][bi, slot] = v[bi, ti].to(ctx.cache_dtype)
+    out = decode_span_attention(q, cache["k"].to(dtype),
+                                cache["v"].to(dtype), pos, cfg)
+    return _attn_out_mlp(p, x, out, cfg, ctx, idx, live), cache
+
+
+def block_prefill(block_params, x, cache, cfg, ctx, seq_mask=None):
+    for i in range(cfg.block_len):
+        x, _ = sublayer_prefill(block_params[f"sl{i}"], x, cache[f"sl{i}"],
+                                cfg, ctx, i, seq_mask)
+    return x, cache
+
+
+def block_decode(block_params, x, cache, pos, cfg, ctx):
+    for i in range(cfg.block_len):
+        x, _ = sublayer_decode(block_params[f"sl{i}"], x, cache[f"sl{i}"],
+                               pos, cfg, ctx, i)
+    return x, cache
+
+
+def block_decode_span(block_params, x, cache, pos, live, cfg, ctx):
+    for i in range(cfg.block_len):
+        x, _ = sublayer_decode_span(block_params[f"sl{i}"], x,
+                                    cache[f"sl{i}"], pos, live, cfg, ctx, i)
+    return x, cache

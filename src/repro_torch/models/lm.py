@@ -1,9 +1,9 @@
-"""Decoder-only LM: specs, train loss and paged serving
-(``repro.models.lm``).
+"""Decoder-only LM: specs, train loss, and serving on dense caches and on
+the paged pool (``repro.models.lm``).
 
 A Python loop over the stacked layer axis replaces the reference's
 ``lax.scan``; each iteration takes views of one layer's parameters and
-page pools. The training loss wraps each block in
+caches (or page pools), which the serving paths update in place. The training loss wraps each block in
 ``torch.utils.checkpoint`` where the reference wraps the scan body in
 ``jax.checkpoint``: a block's activations are recomputed in the backward
 pass instead of kept.
@@ -17,9 +17,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.blocks import (ModelContext, TensorSpec,
+                                       block_cache_spec, block_decode,
                                        block_decode_paged,
+                                       block_decode_span,
                                        block_decode_span_paged,
-                                       block_forward, block_specs,
+                                       block_forward, block_prefill,
+                                       block_specs, init_cache,
                                        paged_block_cache_spec, stack_specs)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ops import (embed_lookup, rms_norm,
@@ -108,15 +111,99 @@ def _span_logits_slice(x: Tensor, logits_at: Optional[Tensor]) -> Tensor:
     return x[bidx, logits_at.long()][:, None]
 
 
+def _stack_spec(per_block: Dict[str, Any], n: int) -> Dict[str, Any]:
+    return {sl: {name: TensorSpec((n, *s.shape), s.dtype)
+                 for name, s in sub.items()}
+            for sl, sub in per_block.items()}
+
+
+def lm_cache_spec(cfg: ModelConfig, batch: int, window: int,
+                  ctx: ModelContext) -> Dict[str, Any]:
+    """Dense per-slot caches, stacked over layers, and positions."""
+    blocks = block_cache_spec(cfg, batch, window, ctx)
+    return {"blocks": _stack_spec(blocks, cfg.n_blocks),
+            "pos": TensorSpec((batch,), torch.int32)}
+
+
+def lm_prefill(params: Dict[str, Any], tokens: Tensor, cfg: ModelConfig,
+               ctx: ModelContext, window: int,
+               logits_at: Optional[Tensor] = None,
+               pad_left: Optional[Tensor] = None
+               ) -> Tuple[Tensor, Dict[str, Any]]:
+    """Full-sequence prefill into fresh dense caches. Returns (logits
+    (B,1,V) of the last position, or of ``logits_at`` (B,), and the cache
+    with ``pos`` = that position + 1)."""
+    if pad_left is not None:
+        raise NotImplementedError(
+            "front-padded prefill (pad_left) serves the state families, "
+            "which are not ported yet (ROADMAP.md Queue A item 2)")
+    b, s = tokens.shape
+    x = embed_lookup(params["embed"], tokens, ctx.compute_dtype)
+    spec = lm_cache_spec(cfg, b, window, ctx)
+    caches = init_cache(spec["blocks"], x.device)
+    for layer in range(cfg.n_blocks):
+        x, _ = block_prefill(tree_index(params["blocks"], layer), x,
+                             tree_index(caches, layer), cfg, ctx)
+    if logits_at is None:
+        x = x[:, -1:]
+        pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
+    else:
+        x = _span_logits_slice(x, logits_at)
+        pos = logits_at.to(torch.int32) + 1
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(params, x, cfg, ctx), {"blocks": caches, "pos": pos}
+
+
+def lm_decode_step(params: Dict[str, Any], token: Tensor,
+                   cache: Dict[str, Any], cfg: ModelConfig,
+                   ctx: ModelContext) -> Tuple[Tensor, Dict[str, Any]]:
+    """token: (B, 1) against dense caches. Returns (logits (B,1,V), cache
+    with pos advanced); the caches are updated in place."""
+    pos = cache["pos"]
+    x = embed_lookup(params["embed"], token, ctx.compute_dtype)
+    for layer in range(cfg.n_blocks):
+        x, _ = block_decode(tree_index(params["blocks"], layer), x,
+                            tree_index(cache["blocks"], layer), pos, cfg,
+                            ctx)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(params, x, cfg, ctx), {"blocks": cache["blocks"],
+                                          "pos": pos + 1}
+
+
+def lm_decode_span(params: Dict[str, Any], tokens: Tensor,
+                   cache: Dict[str, Any], cfg: ModelConfig,
+                   ctx: ModelContext, logits_at: Optional[Tensor] = None
+                   ) -> Tuple[Tensor, Dict[str, Any]]:
+    """T-token span decode against dense caches that hold absolute slots
+    (the chunked-prefill datapath of the dense backend). tokens (B,T) at
+    positions ``pos .. pos+T-1``; ``pos`` may be negative: positions < 0
+    are the dead front padding of a right-aligned first chunk (embeddings
+    zeroed, writes dropped, residual stream exactly 0 there).
+    ``logits_at`` (B,) returns only that position's logits. ``pos`` in the
+    returned cache is unchanged."""
+    pos = cache["pos"]
+    b, t = tokens.shape
+    posn = pos[:, None] + torch.arange(t, device=tokens.device,
+                                       dtype=pos.dtype)[None, :]
+    live = posn >= 0
+    x = embed_lookup(params["embed"], tokens, ctx.compute_dtype)
+    x = x * live[..., None].to(x.dtype)
+    for layer in range(cfg.n_blocks):
+        x, _ = block_decode_span(tree_index(params["blocks"], layer), x,
+                                 tree_index(cache["blocks"], layer), pos,
+                                 live, cfg, ctx)
+    x = _span_logits_slice(x, logits_at)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(params, x, cfg, ctx), {"blocks": cache["blocks"],
+                                          "pos": pos}
+
+
 def lm_paged_state_spec(cfg: ModelConfig, num_pages: int, page_size: int,
                         max_batch: int, max_pages_per_seq: int,
                         ctx: ModelContext) -> Dict[str, Any]:
     per_block = paged_block_cache_spec(cfg, num_pages, page_size, ctx)
-    stacked = {sl: {name: TensorSpec((cfg.n_blocks, *s.shape), s.dtype)
-                    for name, s in sub.items()}
-               for sl, sub in per_block.items()}
     return {
-        "pages": stacked,
+        "pages": _stack_spec(per_block, cfg.n_blocks),
         "page_table": TensorSpec((max_batch, max_pages_per_seq),
                                  torch.int32),
         "pos": TensorSpec((max_batch,), torch.int32),

@@ -1,6 +1,6 @@
 """Continuous-batching serving engine of the port (``repro.serve.engine``).
 
-The single-host paged path of the reference, in eager PyTorch:
+The single-host paths of the reference, in eager PyTorch:
 
   * **Continuous batching** (scheduler.py): requests claim free batch
     slots and drain mid-decode; finished or preempted slots refill
@@ -9,6 +9,11 @@ The single-host paged path of the reference, in eager PyTorch:
     prefill is a chunked span prefill (``prefill_chunk`` tokens per call,
     the final partial chunk bucketed to a power of two) through the same
     span datapath that verifies speculative drafts.
+  * **Dense KV backend** (``paged=False``): per-slot ring caches
+    (kv_cache.DenseKVCache). A prompt prefills in right-aligned spans at
+    absolute positions (``chunk_prefill``), or, when a sliding window
+    makes the cache a ring narrower than the serve window, in one
+    full-prompt prefill; its cache row is then copied into the slot.
   * **Prefix caching**: full prompt pages are content-addressed; an
     admission that hits shares the cached pages (copy-on-write protected)
     and prefills only the prompt suffix.
@@ -30,10 +35,11 @@ The single-host paged path of the reference, in eager PyTorch:
 
 Greedy decoding is the parity contract with the reference engine;
 ``temperature > 0`` samples (Gumbel-max) from an explicit
-``torch.Generator``. The reference's mesh and disaggregation paths (and
-with them the worker-failure and transfer-drop faults) and its dense
-(non-paged) families are not ported yet and raise
-``NotImplementedError``.
+``torch.Generator``. ``generate_pertoken`` is the reference's per-token
+loop (dense prefill, then one decode call per token), kept as a
+cross-check oracle. The reference's mesh and disaggregation paths (and
+with them the worker-failure and transfer-drop faults) are not ported yet
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -45,14 +51,14 @@ import numpy as np
 import torch
 
 from repro_torch.models import api
-from repro_torch.models.blocks import ModelContext
+from repro_torch.models.blocks import ModelContext, init_cache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import tree_map
 from repro_torch.obs.metrics import (CounterDict, MetricsRegistry,
                                      QUEUE_WAIT_BUCKETS_STEPS)
 from repro_torch.obs.steptrace import StepTrace
 from repro_torch.obs.trace import SpanTracer
-from repro_torch.serve.kv_cache import PagedKVCache
+from repro_torch.serve.kv_cache import DenseKVCache, PagedKVCache
 from repro_torch.serve.scheduler import ContinuousBatchingScheduler, Request
 
 Tensor = torch.Tensor
@@ -64,8 +70,10 @@ class ServeEngine:
     """``window``: max total tokens per request (prompt + generated).
 
     ``draft_k``: speculative draft length per decode step (0 disables).
-    ``prefix_cache``: share prompt-prefix pages across requests (None ->
-    on). ``prefill_chunk``: span size for chunked prefill (clamped to the
+    ``paged``: the KV backend (None -> paged where the family supports
+    it; False -> dense per-slot caches). ``prefix_cache``: share
+    prompt-prefix pages across requests (None -> on when paged).
+    ``prefill_chunk``: span size for chunked prefill (clamped to the
     window). The device is ``ctx.device``."""
 
     cfg: ModelConfig
@@ -75,7 +83,7 @@ class ServeEngine:
     chunk: int = 8
     page_size: int = 8
     num_pages: Optional[int] = None
-    paged: Optional[bool] = None  # None -> paged (the only ported backend)
+    paged: Optional[bool] = None
     eos_id: Optional[int] = None
     temperature: float = 0.0
     draft_k: int = 0
@@ -104,14 +112,17 @@ class ServeEngine:
                 "prefill/decode disaggregation is not ported yet")
         if self.paged is None:
             self.paged = api.supports_paged_decode(cfg)
-        if not self.paged or not api.supports_paged_decode(cfg):
-            raise NotImplementedError(
-                f"{cfg.name}: only the paged backend of pure-attention "
-                f"decoders is ported (dense caches are not yet)")
+        if self.paged and not api.supports_paged_decode(cfg):
+            raise ValueError(f"{cfg.name}: paged serving unsupported")
+        if self.draft_k and not self.paged:
+            raise ValueError("speculative decoding (draft_k > 0) requires "
+                             "the paged KV backend")
         if self.draft_k < 0:
             raise ValueError("draft_k must be >= 0")
         if self.prefix_cache is None:
-            self.prefix_cache = True
+            self.prefix_cache = self.paged
+        if self.prefix_cache and not self.paged:
+            raise ValueError("prefix caching requires the paged KV backend")
         self.device = self.ctx.device
         if self.metrics is None:
             self.metrics = MetricsRegistry()
@@ -123,9 +134,10 @@ class ServeEngine:
         self.counters = CounterDict(
             self.metrics,
             ("prefills", "chunks", "decode_steps", "host_syncs",
-             "pages_trimmed", "suffix_prefills", "prompt_tokens",
-             "cached_prompt_tokens", "spec_steps", "spec_tokens",
-             "prefill_span_calls", "span_prefill_compiles"),
+             "pertoken_steps", "pages_trimmed", "suffix_prefills",
+             "prompt_tokens", "cached_prompt_tokens", "spec_steps",
+             "spec_tokens", "prefill_span_calls", "span_prefill_compiles",
+             "span_prefill_dense_compiles"),
             prefix="serve_")
         m = self.metrics
         self._m = {
@@ -149,16 +161,36 @@ class ServeEngine:
         self._device_tid = self.tracer.thread(
             self._trace_pid, self.max_batch, "device")
         self._req_obs: Dict[int, Dict[str, float]] = {}
-        # +1 page of table headroom: a finished slot's frozen pos can sit
-        # exactly at `window`, and speculative spans write up to draft_k
-        # positions past the frontier; those must resolve to trash.
-        self.pages_per_seq = (
-            -(-(self.window + self.draft_k) // self.page_size) + 1)
-        if self.num_pages is None:
-            self.num_pages = 1 + self.max_batch * self.pages_per_seq
-        self.kv = PagedKVCache(cfg, self.ctx, self.num_pages,
-                               self.page_size, self.max_batch,
-                               self.pages_per_seq)
+        if self.paged:
+            # +1 page of table headroom: a finished slot's frozen pos can
+            # sit exactly at `window`, and speculative spans write up to
+            # draft_k positions past the frontier; those must resolve to
+            # trash.
+            self.pages_per_seq = (
+                -(-(self.window + self.draft_k) // self.page_size) + 1)
+            if self.num_pages is None:
+                self.num_pages = 1 + self.max_batch * self.pages_per_seq
+            self.kv: Any = PagedKVCache(cfg, self.ctx, self.num_pages,
+                                        self.page_size, self.max_batch,
+                                        self.pages_per_seq)
+        else:
+            self.kv = DenseKVCache(cfg, self.ctx, self.window,
+                                   self.max_batch)
+        # Front-padded bucketed prefill serves pure state-family stacks
+        # (mamba/rwkv), whose caches are not ported yet: api.cache_spec
+        # raises for them above, so this is False on every ported arch.
+        self.bucket_prefill = (not self.paged
+                               and set(cfg.sublayer_kinds()) <=
+                               {"mamba", "rwkv"})
+        # Chunked prefill through the dense span path: prompts are
+        # right-aligned into fixed-size spans at absolute positions, so
+        # attention needs no front padding. It needs append-only caches,
+        # so sliding-window archs whose window is below the serve window
+        # (a ring) take the full-prompt prefill instead.
+        self.chunk_prefill = (not self.paged
+                              and not self.bucket_prefill
+                              and (cfg.sliding_window is None
+                                   or self.window <= cfg.sliding_window))
         if self.retry_budget < 0:
             raise ValueError("retry_budget must be >= 0")
         self.fault_stats = CounterDict(
@@ -168,14 +200,16 @@ class ServeEngine:
              "fault_stragglers", "fault_detections", "retry_requeues",
              "retry_failures", "shed_requests", "shed_spec_chunks"),
             prefix="serve_")
-        if self.faults is not None:
+        if self.faults is not None and self.paged:
             # CRC-stamp published pages so injected corruption is caught
             # at the next boundary, before any chunk could read it
             self.kv.integrity_checks = True
         self.span_len = max(1, min(self.prefill_chunk, self.window))
-        # span shapes run so far: the reference compiles one program per
-        # shape, so their count is its span_prefill_compiles metric
+        # span shapes run so far, paged and dense: the reference compiles
+        # one program per shape, so their counts are its
+        # span_prefill_compiles and span_prefill_dense_compiles metrics
         self._span_shapes: set = set()
+        self._dense_span_shapes: set = set()
         self._use_spec = False  # per run: draft_k > 0 and greedy
         self._gen: Optional[torch.Generator] = None
         self._reset_carry()
@@ -247,11 +281,40 @@ class ServeEngine:
             logits_at=idx)
         return self._pick(logits, temp)
 
-    def _decode_step(self, params, table: Tensor, temp: float, carry):
+    def _prefill_dense(self, params, tokens: Tensor, temp: float):
+        """Full-prompt prefill of one request into a fresh (1, W) cache
+        row; returns (first token, cache)."""
+        logits, cache = api.prefill_fn(params, {"tokens": tokens}, self.cfg,
+                                       self.ctx, window=self.window)
+        return self._pick(logits, temp), cache
+
+    def _prefill_span_dense(self, params, cache, span: Tensor, pos0: Tensor,
+                            temp: float):
+        """One dense span-prefill call: a right-aligned chunk ends on a
+        live token, whose logits alone go through the lm head."""
+        shape = tuple(span.shape)
+        if shape not in self._dense_span_shapes:
+            self._dense_span_shapes.add(shape)
+            self.metrics.compile_event("serve_span_prefill_dense")
+        state = dict(cache)
+        state["pos"] = pos0
+        last = torch.full((span.shape[0],), span.shape[1] - 1,
+                          dtype=torch.int32, device=span.device)
+        logits, new_state = api.decode_span_fn(
+            params, span, state, self.cfg, self.ctx, logits_at=last)
+        return self._pick(logits, temp), {"blocks": new_state["blocks"]}
+
+    def _decode_step(self, params, table: Optional[Tensor], temp: float,
+                     carry):
         tok, pos, done, n_out, max_new = carry
-        state = {"pages": self.kv.pages, "page_table": table, "pos": pos}
-        logits, _ = api.decode_paged_fn(params, tok, state, self.cfg,
-                                        self.ctx)
+        if self.paged:
+            state = {"pages": self.kv.pages, "page_table": table,
+                     "pos": pos}
+            logits, _ = api.decode_paged_fn(params, tok, state, self.cfg,
+                                            self.ctx)
+        else:
+            logits, _ = api.decode_fn(params, tok, self.kv.state(pos),
+                                      self.cfg, self.ctx)
         emitted = torch.where(done, PAD_TOKEN, tok[:, 0])
         n_out = n_out + torch.where(done, 0, 1).to(n_out.dtype)
         newly_done = ~done & (n_out >= max_new)
@@ -265,7 +328,8 @@ class ServeEngine:
         tok = torch.where(done[:, None], tok, nxt)
         return (tok, pos, done, n_out, max_new), emitted
 
-    def _run_chunk(self, params, table: Tensor, temp: float) -> Tensor:
+    def _run_chunk(self, params, table: Optional[Tensor],
+                   temp: float) -> Tensor:
         """``chunk`` decode steps with no host read; returns the emitted
         tokens (B, chunk) on the device."""
         carry = (self._tok, self._pos, self._done, self._n_out,
@@ -385,22 +449,59 @@ class ServeEngine:
             i += t
         return first
 
+    def _span_prefill_dense(self, params, slot: int, tokens: np.ndarray,
+                            temp: float) -> Tensor:
+        """Chunked prefill on the dense backend: the prompt is RIGHT-
+        aligned into fixed-size spans, so only the first chunk is
+        front-padded; its dead positions sit at negative absolute
+        positions. The first (partial) chunk buckets to a power of two;
+        every other chunk is a full span."""
+        s_len = self.span_len
+        s = len(tokens)
+        r = s % s_len or min(s, s_len)  # first (partial) chunk tokens
+        b0 = self._pow2_bucket(r, s_len)
+        pad = b0 - r
+        padded = np.zeros((1, pad + s), np.int32)
+        padded[0, pad:] = tokens
+        dev, i32 = self.device, torch.int32
+        spec = api.cache_spec(self.cfg, 1, self.window, self.ctx)
+        cache = {"blocks": init_cache(spec["blocks"], dev)}
+        first = None
+        i = 0
+        while i < padded.shape[1]:
+            b_len = b0 if i == 0 else s_len
+            first, cache = self._prefill_span_dense(
+                params, cache,
+                torch.from_numpy(padded[:, i:i + b_len]).to(dev),
+                torch.full((1,), i - pad, dtype=i32, device=dev), temp)
+            self.counters["prefill_span_calls"] += 1
+            i += b_len
+        self.kv.write_prefill(slot, cache)
+        return first
+
     def _admit_into_slot(self, params, req: Request, slot: int,
                          temp: float) -> None:
         rp = req.resume_prompt()
         s = len(rp)
         self.counters["prefills"] += 1
-        cached = req.cached_prefix_len
-        # every prefill is a chunked span prefill; a prefix hit just
-        # starts past the adopted pages (suffix-only compute)
-        first = self._span_prefill_paged(params, slot, rp[cached:], cached,
-                                         temp)
-        if cached > 0:
-            self.counters["suffix_prefills"] += 1
-        if self.prefix_cache:
-            # publish the full prompt pages for later admissions (and
-            # this request's own resume after a preemption)
-            self.kv.register_prefix(slot, rp)
+        if self.paged:
+            cached = req.cached_prefix_len
+            # every paged prefill is a chunked span prefill; a prefix hit
+            # just starts past the adopted pages (suffix-only compute)
+            first = self._span_prefill_paged(params, slot, rp[cached:],
+                                             cached, temp)
+            if cached > 0:
+                self.counters["suffix_prefills"] += 1
+            if self.prefix_cache:
+                # publish the full prompt pages for later admissions (and
+                # this request's own resume after a preemption)
+                self.kv.register_prefix(slot, rp)
+        elif self.chunk_prefill:
+            first = self._span_prefill_dense(params, slot, rp, temp)
+        else:
+            first, cache = self._prefill_dense(
+                params, torch.from_numpy(rp[None, :]).to(self.device), temp)
+            self.kv.write_prefill(slot, cache)
         if self.draft_k and self._use_spec:
             row = np.zeros(self.window + self.draft_k + 1, np.int32)
             row[:s] = rp
@@ -423,7 +524,8 @@ class ServeEngine:
         req = sched.running.get(slot)
         if req is None:
             return
-        self.kv.release(slot)
+        if self.paged:
+            self.kv.release(slot)
         self._done[slot] = True
         pid = self._trace_pid
         self.tracer.end(pid=pid, tid=slot)  # req span
@@ -444,7 +546,9 @@ class ServeEngine:
         order and before the chunk, so corrupted KV is quarantined before
         any decode step could read it: CRC-verify every stamped page,
         quarantine mismatches and replay every request still mapping
-        them."""
+        them. Page flips target the paged pool only."""
+        if not self.paged:
+            return
         fs = self.fault_stats
         r = self.faults.page_flip(boundary)
         if r is not None:
@@ -542,21 +646,22 @@ class ServeEngine:
             if req is None or not slots:
                 break
             slot = slots[0]
-            rp = req.resume_prompt()
-            cached, pids = ((0, []) if not self.prefix_cache
-                            else self.kv.lookup_prefix(rp))
-            if cached:
-                self.kv.adopt_prefix(slot, pids)
-            need = len(rp) + self.chunk * per_step + 1
-            if not self.kv.grow(slot, min(need, self.window)):
-                if self.prefix_cache:
-                    # undo adoption and its counters: the retry at the
-                    # next boundary repeats the lookup
-                    self.kv.abort_adoption(slot, cached, pids)
-                break  # no pages: wait for completions
-            req.cached_prefix_len = cached
-            self.counters["prompt_tokens"] += len(rp)
-            self.counters["cached_prompt_tokens"] += cached
+            if self.paged:
+                rp = req.resume_prompt()
+                cached, pids = ((0, []) if not self.prefix_cache
+                                else self.kv.lookup_prefix(rp))
+                if cached:
+                    self.kv.adopt_prefix(slot, pids)
+                need = len(rp) + self.chunk * per_step + 1
+                if not self.kv.grow(slot, min(need, self.window)):
+                    if self.prefix_cache:
+                        # undo adoption and its counters: the retry at the
+                        # next boundary repeats the lookup
+                        self.kv.abort_adoption(slot, cached, pids)
+                    break  # no pages: wait for completions
+                req.cached_prefix_len = cached
+                self.counters["prompt_tokens"] += len(rp)
+                self.counters["cached_prompt_tokens"] += cached
             wall = now()
             o = self._req_obs.setdefault(req.rid, {})
             o.setdefault("ready", wall)
@@ -633,7 +738,8 @@ class ServeEngine:
                 # quarantined pages and failed slots are settled before
                 # admission or the chunk can observe them
                 self._apply_faults(boundary, clock, sched)
-            self._grow_or_preempt(sched, per_step)
+            if self.paged:
+                self._grow_or_preempt(sched, per_step)
             self._admit(params, sched, clock, per_step, temp)
             if not sched.running:
                 if sched.next_admittable(clock) is not None:
@@ -655,7 +761,7 @@ class ServeEngine:
             sched.record_occupancy(len(sched.running))
             chunk_t0 = now()
             live = len(sched.running)
-            table = self.kv.table_device()
+            table = self.kv.table_device() if self.paged else None
             # under queue pressure, a plain chunk instead of a speculative
             # one: token-identical, since acceptance only ever matches the
             # model's own greedy targets
@@ -727,15 +833,16 @@ class ServeEngine:
                     mtr["generated_tokens"].add(n)
                     self.tracer.end(pid=pid, tid=slot)  # req span
                     sched.complete(slot)
-                    if self.prefix_cache:
-                        # publish generated pages too: multi-turn prompts
-                        # extending this output will hit
-                        self.kv.register_prefix(
-                            slot, np.concatenate(
-                                [req.prompt,
-                                 np.asarray(req.generated, np.int32)]))
-                    self.kv.release(slot)
-                elif self.cfg.sliding_window is not None:
+                    if self.paged:
+                        if self.prefix_cache:
+                            # publish generated pages too: multi-turn
+                            # prompts extending this output will hit
+                            self.kv.register_prefix(
+                                slot, np.concatenate(
+                                    [req.prompt,
+                                     np.asarray(req.generated, np.int32)]))
+                        self.kv.release(slot)
+                elif self.paged and self.cfg.sliding_window is not None:
                     # positions behind pos - window are masked out of
                     # attention: release their pages back to the pool
                     self.counters["pages_trimmed"] += self.kv.trim(
@@ -780,6 +887,35 @@ class ServeEngine:
                     [row, np.full(max_new - len(row), pad, np.int32)])
             rows.append(row)
         return torch.from_numpy(np.stack(rows))
+
+    def generate_pertoken(self, params, batch: Dict[str, Any], *,
+                          max_new: int, temperature: float = 0.0,
+                          generator: Optional[torch.Generator] = None
+                          ) -> Tensor:
+        """The reference's per-token loop: a dense prefill of the batch,
+        then one decode call and one pick per token, with no scheduler.
+        Kept as a cross-check oracle of ``generate``. Samples from
+        ``generator`` when it is given and the temperature is > 0.
+        Returns (B, max_new) int32 tokens on the device."""
+        extra = set(batch) - {"tokens"}
+        if extra:
+            raise NotImplementedError(
+                f"batch keys {sorted(extra)} are not ported yet")
+        tokens = torch.as_tensor(np.asarray(batch["tokens"]),
+                                 dtype=torch.int32).to(self.device)
+        self._gen = generator
+        temp = temperature if generator is not None else 0.0
+        logits, cache = api.prefill_fn(params, {"tokens": tokens}, self.cfg,
+                                       self.ctx, self.window)
+        out = []
+        tok = self._pick(logits, temp)
+        for _ in range(max_new):
+            out.append(tok)
+            logits, cache = api.decode_fn(params, tok, cache, self.cfg,
+                                          self.ctx)
+            tok = self._pick(logits, temp)
+            self.counters["pertoken_steps"] += 1
+        return torch.cat(out, dim=1)
 
 
 def quantize_weights(params: Any, dtype: torch.dtype = torch.float8_e4m3fn

@@ -1,4 +1,5 @@
-"""Paged KV cache of the port (``repro.serve.kv_cache.PagedKVCache``).
+"""KV caches of the port (``repro.serve.kv_cache``): ``PagedKVCache`` and
+``DenseKVCache``.
 
 A vLLM-style page pool for pure-attention decoder stacks: per layer, k/v
 live in a shared ``(num_pages, page_size, KV, D)`` pool (stacked over
@@ -12,6 +13,10 @@ prompt pages (a hit certifies the whole prefix), copy-on-write forks, an
 LRU pool of unreferenced cached pages and CRC stamps of published pages.
 The host bookkeeping is the reference's line for line; only the pools are
 torch tensors on the engine's device, updated in place.
+
+``DenseKVCache`` is the dense backend: one (n_blocks, max_batch, W, KV, D)
+k/v cache per sublayer, a ring when a sliding window makes W smaller than
+the serve window. The reference's mesh placement is not ported.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import api
-from repro_torch.models.blocks import ModelContext
+from repro_torch.models.blocks import ModelContext, init_cache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import tree_items
 
@@ -351,3 +356,33 @@ class PagedKVCache:
         return {"pages_shared": shared, "pages_unique": unique,
                 "bytes_saved": shared * self.page_size *
                 self.per_token_bytes()}
+
+
+@dataclasses.dataclass
+class DenseKVCache:
+    """Per-slot dense ring caches of the whole batch."""
+
+    cfg: ModelConfig
+    ctx: ModelContext
+    window: int
+    max_batch: int
+
+    def __post_init__(self) -> None:
+        spec = api.cache_spec(self.cfg, self.max_batch, self.window,
+                              self.ctx)
+        self.cache: Dict[str, Any] = {
+            "blocks": init_cache(spec["blocks"], self.ctx.device)}
+
+    def state(self, pos: torch.Tensor) -> Dict[str, Any]:
+        """The decode state: the caches (updated in place) and ``pos``."""
+        cache = dict(self.cache)
+        cache["pos"] = pos
+        return cache
+
+    def write_prefill(self, slot: int, prefill_cache: Dict[str, Any]
+                      ) -> None:
+        """Copy a 1-request prefill cache into batch row ``slot``, in
+        place (the reference's jitted ``write_dense``)."""
+        for sl, sub in self.cache["blocks"].items():
+            for name, arr in sub.items():
+                arr[:, slot] = prefill_cache["blocks"][sl][name][:, 0]

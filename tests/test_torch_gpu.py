@@ -17,7 +17,12 @@ launches the kernel at any sequence length. The matmul kernel: f32
 outputs within 4 * sqrt(K) * eps32 * max|out| (summation order; TF32
 inputs fail it), bf16 outputs within one bf16 step (2^-7 relative) of
 max|out|; the startup self-test passes through it and fails on planted
-faults, and a chaos serve's survivors keep the fault-free tokens."""
+faults, and a chaos serve's survivors keep the fault-free tokens. The
+dense ring decode kernel: f32 within 1e-5 (summation order), bf16 within
+one bf16 step of each row's largest |value|; the kernel run at pos - 1
+(one key dropped) fails the same limit; on the dense backend the kernel
+route's greedy tokens equal the plain route's (f32), and a decode chunk
+never waits for the device."""
 
 import numpy as np
 import pytest
@@ -510,3 +515,114 @@ def test_chaos_serve_survivors_keep_fault_free_tokens(cuda, draft_k):
     assert outs[1]
     for rid, toks in outs[1].items():
         np.testing.assert_array_equal(toks, outs[0][rid])
+
+
+# (H, KV, D, W, pos of each row, window): phi4-mini's heads on a wrapped
+# 4096-slot ring with a pos-0 row, a ragged ring width, a window below the
+# width, smoke widths
+DENSE_SHAPES = {
+    "phi4_wrapped": (24, 8, 128, 4096, (0, 1000, 4096, 6000), None),
+    "ragged_w": (16, 2, 128, 1000, (1, 999, 2345), None),
+    "window": (48, 8, 128, 4096, (300, 4500, 9000), 512),
+    "smoke": (4, 2, 16, 24, (0, 5, 24, 50), 8),
+}
+
+
+def _dense_reading(got, want, dtype):
+    """f32: max |error|; bf16: max |error| in bf16 steps of its row's
+    largest |want|."""
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        return float(err.max())
+    top = want.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+    return float((err / torch.exp2(torch.floor(torch.log2(top)) - 7)).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(DENSE_SHAPES))
+def test_dense_decode_kernel_matches_plain(cuda, case, dtype):
+    h, kv, d, w, pos, window = DENSE_SHAPES[case]
+    g = torch.Generator(device="cpu").manual_seed(3)
+    b = len(pos)
+    q, kc, vc = (torch.randn(shape, generator=g).to(dtype).to(cuda)
+                 for shape in ((b, h, d), (b, w, kv, d), (b, w, kv, d)))
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    before = kern.launches["decode_attention"]
+    got = kern.decode_attention(q, kc, vc, p, window=window)
+    want = kern.decode_attention_plain(q, kc, vc, p, window=window)
+    torch.cuda.synchronize()
+    assert kern.launches["decode_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == (b, h, d)
+    limit = 1e-5 if dtype == torch.float32 else 1.0
+    assert _dense_reading(got, want, dtype) <= limit
+    bad = kern.decode_attention(q, kc, vc, p - 1, window=window)
+    assert _dense_reading(bad, want, dtype) > limit
+
+
+def test_dense_decode_wrapper_rejects_bad_inputs(cuda):
+    q = torch.zeros((2, 4, 16), device=cuda)
+    kc = torch.zeros((2, 8, 2, 16), device=cuda)
+    p = torch.ones(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        kern.decode_attention(q, kc.bfloat16(), kc.bfloat16(), p)
+    with pytest.raises(ValueError):
+        kern.decode_attention(q, kc.transpose(1, 2), kc, p)
+    with pytest.raises(ValueError):
+        kern.decode_attention(q, kc, kc, p.long())
+    with pytest.raises(ValueError):
+        kern.decode_attention(q, kc, kc, p, window=0)
+
+
+@pytest.mark.parametrize("arch", ["mixtral_8x22b", "phi4_mini_3_8b"])
+def test_dense_engine_cuda_matches_ref(cuda, arch):
+    """Greedy tokens on the dense backend through the kernels equal the
+    plain route's (f32): mixtral smoke's 8-slot ring, phi4 smoke's chunked
+    span prefill; run and generate_pertoken."""
+    cfg = get_smoke(arch)
+    params = init_params(api.model_specs(cfg), seed=0, device=cuda)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(6, 15)))
+               for _ in range(5)]
+    batch = rng.integers(0, cfg.vocab_size, (2, 11))
+    outs, pert = [], []
+    for impl in ("cuda", "ref"):
+        ctx = ModelContext(compute_dtype=torch.float32, attn_impl=impl,
+                           device=cuda)
+        eng = ServeEngine(cfg, ctx, window=40, max_batch=3, chunk=4,
+                          prefill_chunk=8, paged=False)
+        kern.reset_launches()
+        outs.append(eng.run(params, [Request(rid=i, prompt=p, max_new=14)
+                                     for i, p in enumerate(prompts)]))
+        pert.append(eng.generate_pertoken(params, {"tokens": batch},
+                                          max_new=9))
+        assert (kern.launches["decode_attention"] > 0) == (impl == "cuda")
+    for i in range(len(prompts)):
+        np.testing.assert_array_equal(outs[0][i], outs[1][i])
+    assert torch.equal(pert[0], pert[1])
+
+
+def test_dense_decode_chunk_never_waits_for_the_device(cuda, monkeypatch):
+    """The dense backend's decode chunk (ring write, the dense kernel,
+    sampling) queues its work without one host sync."""
+    cfg = get_smoke("mixtral_8x22b")
+    params = init_params(api.model_specs(cfg), seed=0, device=cuda)
+    chunks = []
+    inner = ServeEngine._run_chunk
+
+    def strict(self, *a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = inner(self, *a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        chunks.append(out.shape)
+        return out
+    monkeypatch.setattr(ServeEngine, "_run_chunk", strict)
+    ctx = ModelContext(compute_dtype=torch.bfloat16, device=cuda)
+    eng = ServeEngine(cfg, ctx, window=40, max_batch=3, chunk=4,
+                      paged=False)
+    rng = np.random.default_rng(2)
+    eng.run(params, [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                                        12), max_new=9)
+                     for i in range(4)])
+    assert chunks
