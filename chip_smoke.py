@@ -58,6 +58,22 @@ result line):
                (flash prefill, dense decode); then 4 layers in f32 (TF32
                off) whose greedy tokens through the kernels equal the
                plain path's, on run and generate_pertoken;
+  5c. state  - full-width, full-depth rwkv6-1.6B (24 layers, bf16) on the
+               dense backend: 8 requests of 64-1024 prompt tokens front-
+               padded to power-of-two buckets, 32 new each, through the
+               chunked WKV kernel (launches = 24 x (prefills + decode
+               steps)), two of them under torch.profiler, then
+               generate_pertoken; then f32 at full depth (TF32 off), greedy
+               tokens through the kernel equal to the plain path's on run
+               and generate_pertoken (97-token prompts: WKV chunk 1); then
+               Jamba-v0.1-52B at full width cut to one block of 8 of its 32
+               layers (7 Mamba + 1 attention, 4 MoE; the only reduction: 32
+               layers of bf16 weights need ~104 GB), bf16, paged=False: 6
+               requests of 64-1024 prompt tokens through the chunked
+               dense-span prefill (the Mamba state threads through the
+               spans), the dense decode kernel (launches = decode steps)
+               and the grouped GEMM; then the same 8 layers in f32, greedy
+               tokens through the kernels equal to the plain path's;
   6. resilient serve - full-width qwen2-0.5B under the startup self-test,
                the deterministic fault schedule and SLO admission: BIST on
                the card (8 matmul-kernel launches, 1 paged-decode launch;
@@ -95,6 +111,14 @@ and f32, causal, windowed (512) and bidirectional, and at smoke widths:
 max |error| within TOL, bf16 also within FLASH_ROW_C bf16 steps of each
 row's largest |value|; the windowed cases also run the kernel with the
 window one key off, a planted fault that must fail the same limits.
+The kernels phase also holds the chunked RWKV-6 WKV kernel against its
+plain version (f32, the model's only WKV dtype) at rwkv6's heads (32 x
+64): a 1024-token bucketed prefill, a batch of 16-token spans from a
+nonzero state, chunks 8 and 13, the decode shape (B 4, S 1), the smoke
+width hd 16 and a front-padded row whose outputs and state must stay
+exactly 0; out and the final state within WKV_LIMIT of the case's largest
+|value|, the kernel without the current-token bonus (a planted fault)
+failing it.
 Training turns on torch's deterministic mode (process-wide), so it runs
 last.
 
@@ -134,6 +158,7 @@ KERNELS = {
     "paged_decode_span_attention":
         "src/repro/kernels/decode_attention.py:276",
     "grouped_matmul": "src/repro/kernels/moe_gemm.py:55",
+    "rwkv_wkv": "src/repro/kernels/rwkv_scan.py:75",
 }
 SOURCES = {
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -144,9 +169,11 @@ SOURCES = {
     "paged_decode_span_attention":
         "src/repro_torch/kernels/csrc/paged_attention.cu",
     "grouped_matmul": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
+    "rwkv_wkv": "src/repro_torch/kernels/csrc/rwkv_wkv.cu",
 }
 EPS32 = 1.1920929e-07
 MIXTRAL_LAYERS = 4  # of 56: the bf16 weights of 4 layers fill ~21 GB
+JAMBA_LAYERS = 8  # of 32: one Jamba block, ~27 GB of bf16 weights
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
 
 
@@ -653,6 +680,102 @@ def dense_case(label: str, dtype: str, h: int, kv: int, d: int, w: int,
     }
 
 
+# (label, B, S, H, hd, chunk, nonzero s0, front pad): rwkv6-1.6B's heads
+# (32 x 64) at a bucketed 1024-token prefill from a zero state, a batch of
+# 16-token spans, chunks of 8 and 13 (fit_chunk of S 8 and 13), the decode
+# shape (B 4, S 1, chunk 1), the smoke width hd 16, and a row front-padded
+# with zeros for its first half
+WKV_CASES = (
+    ("prefill_1024", 1, 1024, 32, 64, 16, False, False),
+    ("batch4_s16", 4, 16, 32, 64, 16, True, False),
+    ("s8_chunk8", 4, 8, 32, 64, 8, True, False),
+    ("s13_chunk13", 4, 13, 32, 64, 13, True, False),
+    ("decode", 4, 1, 32, 64, 1, True, False),
+    ("smoke_hd16", 2, 48, 4, 16, 16, True, False),
+    ("front_pad", 1, 256, 32, 64, 16, False, True),
+)
+# the WKV's limit, of the case's largest |want| (at least 1): f32 sums in
+# another order, and the cumulative log decay's rounding, which the
+# factors exp(cum_excl) and exp(-cum) (up to e^64 at chunk 16) carry
+WKV_LIMIT = 1e-5
+
+
+def wkv_case(label: str, b: int, s: int, h: int, hd: int, chunk: int,
+             with_s0: bool, front_pad: bool, seed: int = 0):
+    """The chunked WKV kernel at one shape: max error of out and of the
+    final state against the plain version (within WKV_LIMIT of the case's
+    largest |want|), the reading of the kernel without the current-token
+    bonus, which must fail the limit, times of both, and the bound. No
+    single PyTorch call computes this recurrence: library_ms is None."""
+    import torch
+    from repro_torch.kernels import rwkv_scan
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    shape = (b, s, h, hd)
+    r, k, v = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
+    lw = torch.clamp(-torch.exp(torch.randn(shape, generator=g, device=dev)),
+                     -4.0, 0.0)
+    u = torch.randn((h, hd), generator=g, device=dev) * 0.5
+    s0 = (torch.randn((b, h, hd, hd), generator=g, device=dev) * 0.3
+          if with_s0 else None)
+    if front_pad:  # a zeroed pad prefix, as a bucketed prefill feeds it
+        for x in (r, k, v):
+            x[:, :s // 2] = 0.0
+    run = lambda: rwkv_scan.rwkv_wkv(r, k, v, lw, u, s0, chunk=chunk)
+    plain = lambda: rwkv_scan.chunked_wkv_plain(r, k, v, lw, u, s0,
+                                                chunk=chunk)
+    before = rwkv_scan.launches["rwkv_wkv"]
+    (got, got_s), (want, want_s) = run(), plain()
+    torch.cuda.synchronize()
+    if rwkv_scan.launches["rwkv_wkv"] != before + 1:
+        raise AssertionError("rwkv_wkv: the wrapper did not count its launch")
+
+    def reading(x, y):
+        return float((x - y).abs().max())
+
+    err = max(reading(got, want), reading(got_s, want_s))
+    limit = WKV_LIMIT * max(1.0, float(want.abs().max()),
+                            float(want_s.abs().max()))
+    if (not bool(torch.isfinite(got).all())
+            or not bool(torch.isfinite(got_s).all()) or err > limit):
+        raise AssertionError(f"rwkv_wkv {label}: max_abs_err {err} > "
+                             f"{limit}")
+    bad, _ = rwkv_scan.rwkv_wkv(r, k, v, lw, u, s0, chunk=chunk,
+                                skip_bonus=True)
+    planted = reading(bad, want)
+    if planted <= limit:
+        raise AssertionError(f"rwkv_wkv {label}: the kernel without the "
+                             f"bonus passes the limit ({planted})")
+    if front_pad:  # out and the state exactly 0 through the pad prefix
+        half = [x[:, :s // 2].contiguous() for x in (r, k, v, lw)]
+        _, head_s = rwkv_scan.rwkv_wkv(*half, u, chunk=chunk)
+        if bool((got[:, :s // 2] != 0).any()) or bool((head_s != 0).any()):
+            raise AssertionError(f"rwkv_wkv {label}: a zero pad prefix "
+                                 f"left nonzero outputs or state")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    ms = timed_ms(run, flush)
+    plain_ms = timed_ms(plain, flush, iters=5)
+    # least time: r, k, v, logw read once and out written once, u and the
+    # initial state read once, the final state written once; f32 flops
+    # ~ B*H*S*(4*hd^2 + 4*chunk*hd) (inter, state update, scores, intra)
+    nbytes = 4.0 * (5 * b * s * h * hd + h * hd
+                    + (2 if with_s0 else 1) * b * h * hd * hd)
+    flops = float(b * h * s * (4 * hd * hd + 4 * chunk * hd))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS["float32"]
+    return {
+        "name": "rwkv_wkv", "label": label, "b": b, "s": s, "h": h,
+        "hd": hd, "chunk": chunk, "s0": with_s0, "front_pad": front_pad,
+        "max_abs_err": err, "limit": limit, "planted_fault": planted,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "flops": flops,
+    }
+
+
 # ------------------------------------------------------------------- serve
 
 
@@ -773,12 +896,15 @@ def profiled_serve(label, engine, params, reqs, wall=None) -> None:
 
 
 def f32_equality(label, mods, cfg, params, reqs, need, trim=False,
-                 paged=True, pertoken=None):
+                 paged=True, pertoken=None, launches=None,
+                 pertoken_need=("flash_attention", "decode_attention")):
     """Greedy tokens through the kernels equal the plain path's (f32,
     TF32 off). With ``trim``, both runs must have trimmed pages. With
-    ``paged=False`` the runs take the dense backend, whose decode launches
-    the dense kernel once per layer and step; ``pertoken`` is a batch that
-    generate_pertoken must then decode to equal tokens too."""
+    ``paged=False`` the runs take the dense backend, whose kernel launches
+    ``launches(label, engine, counts)`` checks (default: the dense kernel
+    once per layer and decode step); ``pertoken`` is a batch that
+    generate_pertoken must then decode to equal tokens too, through the
+    kernels ``pertoken_need``."""
     import torch
     from repro_torch.models.blocks import ModelContext
     from repro_torch.serve.engine import ServeEngine
@@ -798,14 +924,17 @@ def f32_equality(label, mods, cfg, params, reqs, need, trim=False,
             raise AssertionError(f"{label} {impl}: the window trimmed no "
                                  f"page")
         if impl == "cuda" and not paged:
-            dense_decode_launches(f"{label}_f32", engine, counts,
-                                  cfg.n_layers)
+            if launches is None:
+                dense_decode_launches(f"{label}_f32", engine, counts,
+                                      cfg.n_layers)
+            else:
+                launches(f"{label}_f32", engine, counts)
         if pertoken is not None:
             reset_counts(mods)
             pert[impl] = engine.generate_pertoken(
                 params, {"tokens": pertoken}, max_new=16).cpu()
             c = read_counts(mods)
-            used = c["flash_attention"] > 0 and c["decode_attention"] > 0
+            used = all(c[name] > 0 for name in pertoken_need)
             if used != (impl == "cuda") or (impl == "ref"
                                             and any(c.values())):
                 raise AssertionError(f"{label} generate_pertoken {impl}: "
@@ -1066,6 +1195,145 @@ def serve_dense(mods):
     del params
     torch.cuda.empty_cache()
     return counts
+
+
+# ------------------------------------------------------------ state serve
+
+
+def wkv_launches(label, engine, counts, n_layers=None) -> None:
+    """Every prefill and every decode step runs the WKV kernel once per
+    layer."""
+    n_layers = n_layers or engine.cfg.n_layers
+    calls = engine.counters["prefills"] + engine.counters["decode_steps"]
+    if calls == 0 or counts["rwkv_wkv"] != n_layers * calls:
+        raise AssertionError(f"{label}: rwkv_wkv launches "
+                             f"{counts['rwkv_wkv']} != {n_layers} x ({calls} "
+                             f"prefills + decode steps)")
+
+
+def _gb(tree) -> float:
+    return sum(p.numel() * p.element_size() for p in _leaves(tree)) / 1e9
+
+
+def serve_state(mods):
+    """This slice's path: the state families on the dense backend.
+    Full-width, full-depth rwkv6-1.6B through the chunked WKV kernel
+    (bucketed prefill, decode), then Jamba-v0.1-52B at full width cut to
+    one 8-layer block through the dense decode and grouped-GEMM kernels
+    (the chunked span prefill threads its Mamba state through the spans).
+    Returns the launch counts of the two bf16 runs."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import api
+    from repro_torch.models.blocks import ModelContext
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    # 1. rwkv6-1.6B, 24 layers, bf16
+    cfg = get_arch("rwkv6_1_6b")
+    t0 = time.perf_counter()
+    params = init_params(api.model_specs(cfg), seed=0, dtype=torch.bfloat16,
+                         device="cuda")
+    torch.cuda.synchronize()
+    log(f"rwkv6: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.rwkv_heads} WKV heads x {cfg.rwkv_head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}; {_gb(params):.2f} GB of bf16 "
+        f"weights made in {time.perf_counter() - t0:.1f}s")
+    lens = (64, 1024, 300, 700, 128, 900, 512, 256)
+    reqs = dense_requests(cfg.vocab_size, 0, lens, 32)
+    ctx = ModelContext(compute_dtype=torch.bfloat16, device="cuda")
+    make = lambda: ServeEngine(cfg, ctx, window=_window(reqs), max_batch=4,
+                               chunk=8)
+    engine = make()
+    if engine.paged or not engine.bucket_prefill:
+        raise AssertionError("rwkv6: expected the dense backend's bucketed "
+                             "prefill")
+    _, rwkv_counts, _ = serve_run("rwkv6_bf16", mods, engine, params, reqs,
+                                  cfg.vocab_size, ("rwkv_wkv",))
+    wkv_launches("rwkv6_bf16", engine, rwkv_counts)
+    log(f"  rwkv_wkv launches {rwkv_counts['rwkv_wkv']} = {cfg.n_layers} "
+        f"layers x ({engine.counters['prefills']} prefills + "
+        f"{engine.counters['decode_steps']} decode steps); "
+        f"prefill_bucket_sizes {sorted(engine.prefill_bucket_sizes)}")
+    profiled_serve("rwkv6_bf16", make(), params,
+                   dense_requests(cfg.vocab_size, 0, lens, 32)[::4])
+    batch = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 256))
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    toks = engine.generate_pertoken(params, {"tokens": batch}, max_new=16)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = read_counts(mods)
+    if (tuple(toks.shape) != (2, 16) or int(toks.min()) < 0
+            or int(toks.max()) >= cfg.vocab_size
+            or c["rwkv_wkv"] != cfg.n_layers * 17):
+        raise AssertionError(f"rwkv6 generate_pertoken: {toks} launches {c}")
+    log(f"rwkv6 generate_pertoken (2 x 256 prompt, 16 new): {wall:.3f}s "
+        f"launches={c}")
+    del params, engine
+    torch.cuda.empty_cache()
+
+    # f32 (TF32 off) at full depth: the kernel == the plain path, token for
+    # token; generate_pertoken's 97-token prompts prefill at a WKV chunk
+    # of 1 (97 is prime)
+    params = init_params(api.model_specs(cfg), seed=1, device="cuda")
+    short = dense_requests(cfg.vocab_size, 1, (64, 200, 333, 150, 97), 16)
+    f32_equality("rwkv6", mods, cfg, params, short, ("rwkv_wkv",),
+                 paged=False, pertoken=batch[:, :97], launches=wkv_launches,
+                 pertoken_need=("rwkv_wkv",))
+    del params
+    torch.cuda.empty_cache()
+
+    # 2. Jamba-v0.1-52B at full width, one block of 8 of its 32 layers
+    full = get_arch("jamba_v01_52b")
+    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS)
+    kinds = cfg.sublayer_kinds()
+    log(f"jamba: {cfg.n_layers} of {full.n_layers} layers "
+        f"({kinds.count('mamba')} Mamba + {kinds.count('attn')} attention, "
+        f"{sum(cfg.moe_mask())} MoE), d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.resolved_head_dim}, "
+        f"{cfg.n_experts} experts top-{cfg.experts_per_token} x d_ff "
+        f"{cfg.d_ff}, Mamba d_inner {cfg.d_inner} N {cfg.ssm_state_dim}; "
+        f"bf16 weights of all {full.n_layers} layers "
+        f"{2 * full.total_params() / 1e9:.1f} GB, of {cfg.n_layers} "
+        f"{2 * cfg.total_params() / 1e9:.1f} GB (the card holds 80)")
+    t0 = time.perf_counter()
+    params = init_params(api.model_specs(cfg), seed=0, dtype=torch.bfloat16,
+                         device="cuda")
+    torch.cuda.synchronize()
+    log(f"jamba: {_gb(params):.2f} GB of bf16 weights made in "
+        f"{time.perf_counter() - t0:.1f}s")
+    reqs = dense_requests(cfg.vocab_size, 2, (64, 1024, 300, 700, 128, 900),
+                          32)
+    engine = ServeEngine(cfg, ctx, window=_window(reqs), max_batch=4,
+                         chunk=8, paged=False)
+    if not engine.chunk_prefill:
+        raise AssertionError("jamba: expected the chunked span prefill")
+    n_attn = kinds.count("attn")
+    _, jamba_counts, _ = serve_run("jamba_bf16", mods, engine, params, reqs,
+                                   cfg.vocab_size,
+                                   ("decode_attention", "grouped_matmul"))
+    dense_decode_launches("jamba_bf16", engine, jamba_counts, n_attn)
+    log(f"  decode_attention launches {jamba_counts['decode_attention']} = "
+        f"{n_attn} attention layer x {engine.counters['decode_steps']} "
+        f"decode steps; grouped_matmul {jamba_counts['grouped_matmul']}; "
+        f"span-prefill calls {engine.counters['prefill_span_calls']}")
+    del params, engine
+    torch.cuda.empty_cache()
+
+    # f32 (TF32 off) at the same 8 layers (~53 GB): kernels == plain path
+    params = init_params(api.model_specs(cfg), seed=1, device="cuda")
+    log(f"jamba f32: {_gb(params):.2f} GB of weights")
+    short = dense_requests(cfg.vocab_size, 3, (64, 200, 150, 97), 16)
+    f32_equality("jamba", mods, cfg, params, short,
+                 ("decode_attention", "grouped_matmul"), paged=False,
+                 pertoken=batch[:, :97],
+                 launches=lambda lb, e, c: dense_decode_launches(
+                     lb, e, c, n_attn))
+    del params
+    torch.cuda.empty_cache()
+    return rwkv_counts, jamba_counts
 
 
 # ------------------------------------------------------- resilient serve
@@ -1471,7 +1739,8 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import moe_gemm
-    mods = (kern, moe_gemm, flash, mm)
+    from repro_torch.kernels import rwkv_scan
+    mods = (kern, moe_gemm, flash, mm, rwkv_scan)
 
     # f32 comparisons run in full f32 (matmul and cuDNN)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1599,6 +1868,15 @@ def main() -> int:
             f"ms={v['ms']:.4f} plain_ms={v['plain_ms']:.4f} "
             f"library_ms={v['library_ms']:.4f} (SDPA) "
             f"bound_ms={v['bound_ms']:.5f} ({v['bound_by']})")
+    wkvs = [wkv_case(*case) for case in WKV_CASES]
+    for v in wkvs:
+        log(f"kernel rwkv_wkv {v['label']} b={v['b']} s={v['s']} h={v['h']} "
+            f"hd={v['hd']} chunk={v['chunk']} s0={v['s0']}: "
+            f"max_abs_err={v['max_abs_err']:.3e} (limit {v['limit']:.3e}) "
+            f"planted_fault(no bonus)={v['planted_fault']:.3e} "
+            f"ms={v['ms']:.4f} plain_ms={v['plain_ms']:.4f} library_ms=null "
+            f"(no PyTorch call computes the recurrence) "
+            f"bound_ms={v['bound_ms']:.5f} ({v['bound_by']})")
     log(f"kernels phase done at {time.perf_counter() - t_start:.1f}s")
 
     # 4-5. the serving paths, each with the counts read around its runs
@@ -1609,6 +1887,9 @@ def main() -> int:
     log(f"mixtral phase done at {time.perf_counter() - t_start:.1f}s")
     counts["phi4_mini_3_8b_dense"] = serve_dense(mods)
     log(f"dense phase done at {time.perf_counter() - t_start:.1f}s")
+    counts["rwkv6_1_6b"], counts[f"jamba_v01_52b_{JAMBA_LAYERS}l"] = \
+        serve_state(mods)
+    log(f"state phase done at {time.perf_counter() - t_start:.1f}s")
     counts["qwen2_0_5b_bist"], counts["qwen2_0_5b_chaos"] = \
         serve_resilient(mods)
     log(f"resilient serve phase done at {time.perf_counter() - t_start:.1f}s")
@@ -1618,11 +1899,13 @@ def main() -> int:
 
     # one line for every kernel: launches on the path that runs it (matmul:
     # the startup self-test; flash: the bf16 training run; paged and
-    # grouped: the Mixtral bf16 serve; dense decode: the phi4 dense serve),
+    # grouped: the Mixtral bf16 serve; dense decode: the phi4 dense serve;
+    # the WKV: the rwkv6 bf16 serve),
     # a representative at that path's shapes (matmul: f32 128^3; flash:
     # bf16 causal at the training shape; paged: bf16 pages at Mixtral's
     # shapes, decode and the span at T=128; grouped: bf16, a 4-token decode
-    # step's up projection; dense decode: bf16 at phi4's serving shape),
+    # step's up projection; dense decode: bf16 at phi4's serving shape;
+    # the WKV: rwkv6's 1024-token bucketed prefill),
     # and every variant measured
     kernels = []
     for kname, replaces in KERNELS.items():
@@ -1650,6 +1933,13 @@ def main() -> int:
                     "window", "max_abs_err", "reading", "limit",
                     "planted_fault", "ms", "plain_ms", "library_ms",
                     "bound_ms", "bound_by")
+        elif kname == "rwkv_wkv":
+            main_path = counts["rwkv6_1_6b"]
+            mine = wkvs
+            rep = wkvs[0]
+            keys = ("label", "b", "s", "h", "hd", "chunk", "s0",
+                    "front_pad", "max_abs_err", "limit", "planted_fault",
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
         elif kname == "grouped_matmul":
             mine = gemms
             rep = [v for v in mine if v["x"] == "bf16" and v["w"] == "bf16"

@@ -28,7 +28,8 @@ ARCH_IDS = (
 )
 
 PORTED = ("qwen2_0_5b", "mixtral_8x22b", "kimi_k2_1t_a32b",
-          "internlm2_1_8b", "phi4_mini_3_8b", "qwen2_5_3b")
+          "internlm2_1_8b", "phi4_mini_3_8b", "qwen2_5_3b", "rwkv6_1_6b",
+          "jamba_v01_52b")
 
 
 def canonical(arch: str) -> str:

@@ -1,19 +1,19 @@
 """Public kernel entry points with an implementation switch
 (``repro/kernels/ops.py`` without the mesh branches): the tiled matmul,
-flash attention, dense ring decode attention, paged attention and the
-m-grouped MoE GEMM.
+flash attention, dense ring decode attention, paged attention, the
+m-grouped MoE GEMM and the chunked RWKV-6 WKV.
 
 ``impl="cuda"`` launches the hand-written Hopper kernel and needs CUDA
 tensors; ``impl="ref"`` runs the plain-torch oracle (an f32 dot; the full
 softmax; the ring-masked softmax; gather the pages, then attend; one f32
-product per expert) on any device.
+product per expert; the chunked WKV) on any device.
 Model code picks the impl through ``ModelContext.attn_impl`` (and
 ``moe_impl``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,6 +22,7 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import matmul as _matmul
 from repro_torch.kernels import moe_gemm as _moe_gemm
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rwkv_scan as _rwkv
 
 IMPLS = ("cuda", "ref")
 
@@ -128,3 +129,20 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_ids: torch.Tensor,
     if impl == "ref":
         return _ref.grouped_matmul_ref(x, w, group_ids, w_scale=w_scale)
     return _moe_gemm.grouped_matmul(x, w, group_ids, w_scale=w_scale)
+
+
+def rwkv_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             logw: torch.Tensor, u: torch.Tensor,
+             s0: Optional[torch.Tensor] = None, *, chunk: int,
+             impl: str = "cuda", state_out: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked RWKV-6 WKV. r, k, v, logw: (B,S,H,hd) f32, logw clamped to
+    [-4, 0]; u: (H, hd); s0: (B,H,hd,hd) initial state (None: zeros);
+    1 <= chunk <= 16 dividing S. ``state_out`` takes the final state and
+    may be s0 itself. Returns (out (B,S,H,hd), final state)."""
+    _cuda_only(r, impl)
+    if impl == "ref":
+        return _rwkv.rwkv_wkv_plain(r, k, v, logw, u, s0, chunk=chunk,
+                                    state_out=state_out)
+    return _rwkv.rwkv_wkv(r, k, v, logw, u, s0, chunk=chunk,
+                          state_out=state_out)

@@ -1,10 +1,11 @@
 """Plain-torch twins of the matmul, flash-attention, dense ring decode,
-paged-attention and grouped-GEMM oracles in ``repro/kernels/ref.py`` (the
-correctness contract of the CUDA kernels).
+paged-attention, grouped-GEMM and RWKV-6 WKV oracles in
+``repro/kernels/ref.py`` (the correctness contract of the CUDA kernels).
 
 They materialize what the kernels never do: the (S, S) score matrix, each
 request's contiguous KV view, gathered (and dequantized) from the page
-pool, and each expert's weights in f32.
+pool, and each expert's weights in f32; the WKV oracle walks the
+recurrence one token at a time.
 """
 
 from __future__ import annotations
@@ -132,3 +133,22 @@ def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor,
             acc = acc * w_scale[ge].float()
         out[rows] = acc
     return out.to(x.dtype)
+
+
+def rwkv_wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 logw: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Token-serial RWKV-6 WKV recurrence (the definitional oracle).
+
+    r, k, v, logw: (BH, S, hd) f32, logw the per-step log decay; u:
+    (BH, hd) the current-token bonus. From a zero (hd, hd) state,
+    out_t = r_t (S + diag(u) k_t^T v_t), then S <- diag(exp(logw_t)) S +
+    k_t^T v_t. Returns (BH, S, hd)."""
+    bh, s, hd = r.shape
+    state = torch.zeros((bh, hd, hd), dtype=torch.float32, device=r.device)
+    outs = []
+    for t in range(s):
+        kv = k[:, t, :, None] * v[:, t, None, :]  # (BH, hd_k, hd_v)
+        outs.append(torch.einsum("bk,bkv->bv", r[:, t],
+                                 state + u[:, :, None] * kv))
+        state = torch.exp(logw[:, t])[:, :, None] * state + kv
+    return torch.stack(outs, dim=1)

@@ -30,6 +30,8 @@ demo that zeroes nearly every weight).
       --spec-off-depth 2 --draft-k 2 --quantize fp8 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral_8x22b \
       --smoke --trace 4 --device cpu [--moe-dispatch capacity]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_1_6b \
+      --smoke --trace 4 --device cpu        # or --arch jamba_v01_52b
 """
 
 from __future__ import annotations
@@ -211,7 +213,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
     dtype = getattr(torch, args.dtype)
     ctx = ModelContext(
-        compute_dtype=dtype,
+        compute_dtype=dtype, mamba_chunk=16, rwkv_chunk=8,
         decode_cache_dtype=torch.int8 if args.kv_int8 else None,
         device=device, moe_dispatch=args.moe_dispatch)
     params = init_params(api.model_specs(cfg), seed=args.seed, dtype=dtype,
@@ -274,9 +276,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
               f"host_syncs={engine.counters['host_syncs']}")
         print(f"occupancy={s.mean_occupancy:.2f} stats={s.stats}")
         print(slo_line(engine))
-        print(f"prefix_hit_rate={engine.prefix_hit_rate:.2f} "
-              f"acceptance_length={engine.acceptance_length:.2f} "
-              f"kv={engine.kv.counters}")
+        if engine.paged:
+            print(f"prefix_hit_rate={engine.prefix_hit_rate:.2f} "
+                  f"acceptance_length={engine.acceptance_length:.2f} "
+                  f"kv={engine.kv.counters}")
+        elif engine.bucket_prefill:
+            print(f"prefill_bucket_sizes="
+                  f"{sorted(engine.prefill_bucket_sizes)}")
         if faults is not None or admission is not None:
             print(f"[faults] {dict(engine.fault_stats.items())}")
         dump_telemetry(engine, args)

@@ -1,6 +1,7 @@
 """Family-agnostic model API of the port (``repro.models.api``): specs,
 the training loss, and serving of decoder-only models on dense caches
-(prefill, decode, span decode) and on the paged pool."""
+(prefill, front-padded for state-family stacks, decode, span decode) and
+on the paged pool."""
 
 from __future__ import annotations
 
@@ -36,7 +37,9 @@ def cache_spec(cfg: ModelConfig, batch: int, window: int,
 def prefill_fn(params, batch, cfg: ModelConfig, ctx: ModelContext,
                window: int, logits_at=None, pad_left=None):
     """Full-prompt prefill into fresh dense caches. ``logits_at`` (B,):
-    the position whose logits to return (default: the last)."""
+    the position whose logits to return (default: the last).
+    ``pad_left`` (B,): leading pad count of front-padded state-family
+    prompts (see lm.lm_prefill)."""
     _require_decoder_only(cfg)
     if batch.get("positions") is not None:
         raise NotImplementedError("mrope position rows are not ported yet")

@@ -3,16 +3,21 @@
 
 A *block* is ``block_len`` sublayers; parameters of all blocks are
 stacked on a leading ``n_blocks`` axis, and lm.py runs a Python loop over
-that axis where the reference runs ``lax.scan``. Only pure-attention
-decoders are ported: attention + dense-FFN or MoE specs, the full-
-sequence forward of the training loss, and two KV layouts for serving:
+that axis where the reference runs ``lax.scan``. A sublayer's core is
+attention, Mamba or the RWKV-6 time mix (``cfg.sublayer_kinds()``), its
+MLP a dense FFN, an MoE or, after an RWKV core, the RWKV channel mix.
+The full-sequence forward of the training loss takes attention stacks
+only. Serving has two layouts:
 
-  * dense per-slot caches: k/v of shape (B, W, KV, D), a ring when a
-    sliding window makes W smaller than the serve window (slot =
-    position % W); full-prompt prefill, one-token decode and T-token
-    span decode against them;
-  * the paged pool: int8 page quantization, and one-token / T-token
-    decode against the pool.
+  * dense per-slot caches: attention k/v of shape (B, W, KV, D), a ring
+    when a sliding window makes W smaller than the serve window (slot =
+    position % W); Mamba's (conv window, ssm state) and RWKV's (token
+    shift, WKV state, channel-mix token shift), constant in size;
+    full-prompt prefill (front-padded for state-family stacks), one-token
+    decode and T-token span decode against them, all updating the caches
+    in place;
+  * the paged pool (pure-attention stacks): int8 page quantization, and
+    one-token / T-token decode against the pool.
 
 Pages are a shared pool per layer: k/v of shape (num_pages, page_size, KV,
 D), plus (num_pages, page_size, KV) bf16 scale pages when the cache dtype
@@ -34,10 +39,13 @@ from repro_torch.models.attention import (apply_positional, decode_attention,
                                           decode_span_attention,
                                           full_attention)
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.mamba import mamba_forward, mamba_param_specs
 from repro_torch.models.moe import (dense_ffn, dense_ffn_specs, moe_ffn,
                                     moe_param_specs)
 from repro_torch.models.ops import rms_norm
 from repro_torch.models.params import ParamSpec, ones_init, zeros_init
+from repro_torch.models.rwkv6 import (rwkv_channel_mix, rwkv_channel_specs,
+                                      rwkv_param_specs, rwkv_time_mix)
 
 Tensor = torch.Tensor
 
@@ -54,7 +62,9 @@ class ModelContext:
     ``device`` defaults to the card (raising when there is none);
     ``attn_impl`` defaults to "cuda" on a CUDA device and "ref" (the
     gather / q-chunked paths of models/attention.py) on the CPU;
-    ``q_chunk`` bounds the plain path's query chunk.
+    ``q_chunk`` bounds the plain path's query chunk; ``mamba_chunk`` and
+    ``rwkv_chunk`` are the chunk lengths of the Mamba scan and the RWKV
+    WKV (each fit to a divisor of the sequence).
     ``full_cache_window`` keeps absolute (non-ring) dense KV slots even
     for sliding-window archs. ``moe_dispatch`` is
     the serving MoE dispatch: "grouped" (sort-based dropless through the
@@ -62,7 +72,8 @@ class ModelContext:
     buffer); ``moe_impl=None`` derives the GEMM impl from attn_impl."""
 
     def __init__(self, *, compute_dtype: torch.dtype = torch.bfloat16,
-                 q_chunk: int = 2048,
+                 q_chunk: int = 2048, mamba_chunk: int = 256,
+                 rwkv_chunk: int = 16,
                  attn_impl: Optional[str] = None,
                  decode_cache_dtype: Optional[torch.dtype] = None,
                  full_cache_window: bool = False,
@@ -79,6 +90,8 @@ class ModelContext:
             raise ValueError("attn_impl='cuda' needs a CUDA device")
         self.compute_dtype = compute_dtype
         self.q_chunk = q_chunk
+        self.mamba_chunk = mamba_chunk
+        self.rwkv_chunk = rwkv_chunk
         self.attn_impl = attn_impl
         self.decode_cache_dtype = decode_cache_dtype  # None -> compute
         self.full_cache_window = full_cache_window
@@ -129,16 +142,22 @@ def attn_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 def sublayer_specs(cfg: ModelConfig, idx: int) -> Dict[str, Any]:
     kind = cfg.sublayer_kinds()[idx]
-    if kind != "attn":
-        raise NotImplementedError(
-            f"{cfg.name}: sublayer {idx} ({kind}) is not ported yet")
     d = cfg.d_model
+    core = {"attn": attn_param_specs, "mamba": mamba_param_specs,
+            "rwkv": rwkv_param_specs}
+    if kind not in core:
+        raise ValueError(kind)
+    if kind == "rwkv":
+        mlp = rwkv_channel_specs(cfg)
+    elif cfg.sublayer_has_moe(idx):
+        mlp = moe_param_specs(cfg)
+    else:
+        mlp = dense_ffn_specs(cfg)
     return {
         "ln1": ParamSpec((d,), ("embed",), init=ones_init()),
         "ln2": ParamSpec((d,), ("embed",), init=ones_init()),
-        "core": attn_param_specs(cfg),
-        "mlp": (moe_param_specs(cfg) if cfg.sublayer_has_moe(idx)
-                else dense_ffn_specs(cfg)),
+        "core": core[kind](cfg),
+        "mlp": mlp,
     }
 
 
@@ -189,7 +208,13 @@ def sublayer_forward(p: Dict[str, Any], x: Tensor, cfg: ModelConfig,
                      ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """norm -> attention -> residual, norm -> MLP/MoE -> residual. MoE
     sublayers run the capacity dispatch with its aux losses, as the
-    reference's training forward does."""
+    reference's training forward does. Training through Mamba and RWKV
+    sublayers is not ported yet."""
+    kind = cfg.sublayer_kinds()[idx]
+    if kind != "attn":
+        raise NotImplementedError(
+            f"{cfg.name}: training through {kind} sublayers is not ported "
+            f"yet (ROADMAP.md Queue A, state-family training)")
     dtype = ctx.compute_dtype
     aux: Dict[str, Tensor] = {}
     x = x + attn_forward(p["core"], rms_norm(x, p["ln1"], cfg.norm_eps),
@@ -305,18 +330,25 @@ def _table_lookup(page_table: Tensor, bidx: Tensor, posn: Tensor,
     return page_table[bidx, col.long()].long()
 
 
-def _attn_out_mlp(p, x, out, cfg: ModelConfig, ctx: ModelContext,
-                  idx: int, live: Optional[Tensor] = None) -> Tensor:
-    """o-projection, residual, norm, MLP/MoE, residual. ``live`` (B,T)
-    zeroes both sublayer outputs at dead positions, so the residual
-    stream stays exactly 0 there."""
+def _residual_mlp(p, x, core, cfg: ModelConfig, ctx: ModelContext,
+                  idx: int, live: Optional[Tensor] = None,
+                  cache: Optional[Dict[str, Tensor]] = None,
+                  cm_prev: Optional[Tensor] = None) -> Tensor:
+    """Residual of the core output, norm, MLP/MoE (or, after an RWKV core,
+    the channel mix from the token ``cm_prev``, its new token written to
+    ``cache["cm_tok"]``), residual. ``live`` (B,T) zeroes both sublayer
+    outputs at dead positions, so the residual stream stays exactly 0
+    there."""
     dtype = ctx.compute_dtype
-    core = torch.einsum("bshk,hkd->bsd", out, p["core"]["wo"].to(dtype))
     if live is not None:
         core = torch.where(live[..., None], core, 0.0)
     x = x + core
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    if cfg.sublayer_has_moe(idx):
+    if cfg.sublayer_kinds()[idx] == "rwkv":
+        mlp, cm_tok = rwkv_channel_mix(p["mlp"], h, cfg, dtype,
+                                       prev=cm_prev, return_state=True)
+        cache["cm_tok"].copy_(cm_tok)
+    elif cfg.sublayer_has_moe(idx):
         mlp, _ = moe_ffn(p["mlp"], h, cfg, dtype, with_aux=False,
                          **ctx.moe_kwargs())
     else:
@@ -324,6 +356,14 @@ def _attn_out_mlp(p, x, out, cfg: ModelConfig, ctx: ModelContext,
     if live is not None:
         mlp = torch.where(live[..., None], mlp, 0.0)
     return x + mlp
+
+
+def _attn_out_mlp(p, x, out, cfg: ModelConfig, ctx: ModelContext,
+                  idx: int, live: Optional[Tensor] = None) -> Tensor:
+    """o-projection, then ``_residual_mlp``."""
+    core = torch.einsum("bshk,hkd->bsd", out,
+                        p["core"]["wo"].to(ctx.compute_dtype))
+    return _residual_mlp(p, x, core, cfg, ctx, idx, live)
 
 
 def sublayer_decode_paged(p, x: Tensor, pages: Dict[str, Tensor],
@@ -412,12 +452,28 @@ def block_decode_span_paged(block_params, x, pages, page_table, pos, live,
 def sublayer_cache_spec(cfg: ModelConfig, idx: int, batch: int, window: int,
                         ctx: ModelContext) -> Dict[str, TensorSpec]:
     """Ring-buffered k/v of an attention sublayer: (batch, W, KV, D) with
-    W = min(window, sliding window) unless ``ctx.full_cache_window``."""
+    W = min(window, sliding window) unless ``ctx.full_cache_window``.
+    Mamba: the conv window (batch, w-1, d_inner) in the compute dtype and
+    the ssm state (batch, d_inner, N) in f32. RWKV: the time mix's token
+    shift (batch, 1, D) and the channel mix's, in the compute dtype, and
+    the WKV state (batch, H, hd, hd) in f32."""
     kind = cfg.sublayer_kinds()[idx]
-    if kind != "attn":
-        raise NotImplementedError(
-            f"{cfg.name}: {kind} caches are not ported yet (ROADMAP.md "
-            f"Queue A item 2)")
+    cdt = ctx.compute_dtype
+    if kind == "mamba":
+        return {
+            "conv": TensorSpec((batch, cfg.ssm_conv_width - 1, cfg.d_inner),
+                               cdt),
+            "ssm": TensorSpec((batch, cfg.d_inner, cfg.ssm_state_dim),
+                              torch.float32),
+        }
+    if kind == "rwkv":
+        hd = cfg.rwkv_head_dim
+        return {
+            "tok": TensorSpec((batch, 1, cfg.d_model), cdt),
+            "wkv": TensorSpec((batch, cfg.rwkv_heads, hd, hd),
+                              torch.float32),
+            "cm_tok": TensorSpec((batch, 1, cfg.d_model), cdt),
+        }
     w = window
     if cfg.sliding_window is not None and not ctx.full_cache_window:
         w = min(window, cfg.sliding_window)
@@ -439,6 +495,30 @@ def init_cache(spec: Any, device: torch.device) -> Any:
     return {k: init_cache(v, device) for k, v in spec.items()}
 
 
+def _state_core(p, h: Tensor, cache: Dict[str, Tensor], cfg: ModelConfig,
+                ctx: ModelContext, idx: int, *, fresh: bool = False,
+                live: Optional[Tensor] = None) -> Tensor:
+    """The Mamba or RWKV core of a sublayer on the normed input ``h``,
+    from the cached state (``fresh``: from zeros, as a prefill starts),
+    its new state written into ``cache`` in place. ``live`` (B,S) is
+    Mamba's ``seq_mask``: a zero state passes a masked pad prefix
+    exactly."""
+    if cfg.sublayer_kinds()[idx] == "mamba":
+        core, (conv, ssm) = mamba_forward(
+            p["core"], h, cfg, ctx.compute_dtype, chunk=ctx.mamba_chunk,
+            init_state=None if fresh else (cache["conv"], cache["ssm"]),
+            return_state=True, seq_mask=live)
+        cache["conv"].copy_(conv)
+        cache["ssm"].copy_(ssm)
+        return core
+    core, (tok, _) = rwkv_time_mix(
+        p["core"], h, cfg, ctx,
+        init_state=None if fresh else (cache["tok"], cache["wkv"]),
+        return_state=True, state_out=cache["wkv"])
+    cache["tok"].copy_(tok)
+    return core
+
+
 def sublayer_prefill(p, x: Tensor, cache: Dict[str, Tensor],
                      cfg: ModelConfig, ctx: ModelContext, idx: int,
                      seq_mask: Optional[Tensor] = None
@@ -446,7 +526,20 @@ def sublayer_prefill(p, x: Tensor, cache: Dict[str, Tensor],
     """Full-sequence forward that fills the cache. x: (B,S,D); ``cache``
     holds zeros of the spec's shape and is filled in place. With S past
     the cache width W only the last W positions are kept, rolled so that
-    position p sits in slot p % W."""
+    position p sits in slot p % W.
+
+    ``seq_mask`` (B,S) marks live positions when the server front-pads a
+    prompt to a bucketed length (state families only): with zeroed
+    embeddings the residual stream is exactly 0 through the pad prefix
+    (every projection is bias-free and every core output is gated by a
+    zero), so masking the one biased intermediate, Mamba's conv, keeps
+    the recurrent state untouched until the first live token."""
+    kind = cfg.sublayer_kinds()[idx]
+    if kind != "attn":
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        core = _state_core(p, h, cache, cfg, ctx, idx, fresh=True,
+                           live=seq_mask)
+        return _residual_mlp(p, x, core, cfg, ctx, idx, cache=cache), cache
     if seq_mask is not None:
         raise ValueError(
             "seq_mask (front padding) requires a state-family stack; "
@@ -474,8 +567,14 @@ def sublayer_decode(p, x: Tensor, cache: Dict[str, Tensor], pos: Tensor,
                     ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """One-token decode. x: (B,1,D); pos: (B,) int32 valid-token count
     BEFORE this token. Each row writes its own ring slot pos % W in place,
-    then attends over its valid slots."""
+    then attends over its valid slots; a Mamba or RWKV sublayer steps its
+    state in place."""
     dtype = ctx.compute_dtype
+    if cfg.sublayer_kinds()[idx] != "attn":
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        core = _state_core(p, h, cache, cfg, ctx, idx)
+        return _residual_mlp(p, x, core, cfg, ctx, idx, cache=cache,
+                             cm_prev=cache.get("cm_tok")), cache
     b = x.shape[0]
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _project_qkv(p["core"], h, cfg, dtype)
@@ -507,8 +606,14 @@ def sublayer_decode_span(p, x: Tensor, cache: Dict[str, Tensor],
     (W >= total length, no ring wrap): k/v land at their position, writes
     of dead (or out-of-range) positions are dropped. Every sublayer output
     is re-masked, so the residual stream stays exactly 0 at dead
-    positions."""
+    positions: a Mamba or RWKV state threads through the span from the
+    cache, untouched by a dead prefix."""
     dtype = ctx.compute_dtype
+    if cfg.sublayer_kinds()[idx] != "attn":
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        core = _state_core(p, h, cache, cfg, ctx, idx, live=live)
+        return _residual_mlp(p, x, core, cfg, ctx, idx, live, cache=cache,
+                             cm_prev=cache.get("cm_tok")), cache
     b, t, _ = x.shape
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _project_qkv(p["core"], h, cfg, dtype)

@@ -1,5 +1,6 @@
-"""Decoder-only LM: specs, train loss, and serving on dense caches and on
-the paged pool (``repro.models.lm``).
+"""Decoder-only LM: specs, train loss, and serving on dense caches (every
+family: attention, Mamba, RWKV) and on the paged pool
+(``repro.models.lm``).
 
 A Python loop over the stacked layer axis replaces the reference's
 ``lax.scan``; each iteration takes views of one layer's parameters and
@@ -132,18 +133,26 @@ def lm_prefill(params: Dict[str, Any], tokens: Tensor, cfg: ModelConfig,
                ) -> Tuple[Tensor, Dict[str, Any]]:
     """Full-sequence prefill into fresh dense caches. Returns (logits
     (B,1,V) of the last position, or of ``logits_at`` (B,), and the cache
-    with ``pos`` = that position + 1)."""
-    if pad_left is not None:
-        raise NotImplementedError(
-            "front-padded prefill (pad_left) serves the state families, "
-            "which are not ported yet (ROADMAP.md Queue A item 2)")
+    with ``pos`` = that position + 1).
+
+    ``pad_left`` (B,) declares the first N positions of each row padding,
+    for state-family (Mamba/RWKV) stacks: their embeddings are zeroed and
+    the recurrent state stays exactly at zero through the pad prefix, so a
+    server can pad prompts from the front to a bucketed length. Attention
+    sublayers refuse it (front padding would shift their positions)."""
     b, s = tokens.shape
     x = embed_lookup(params["embed"], tokens, ctx.compute_dtype)
+    live = None
+    if pad_left is not None:
+        live = (torch.arange(s, device=x.device)[None, :]
+                >= pad_left.to(x.device)[:, None])  # (B, S)
+        x = x * live[..., None].to(x.dtype)
     spec = lm_cache_spec(cfg, b, window, ctx)
     caches = init_cache(spec["blocks"], x.device)
     for layer in range(cfg.n_blocks):
         x, _ = block_prefill(tree_index(params["blocks"], layer), x,
-                             tree_index(caches, layer), cfg, ctx)
+                             tree_index(caches, layer), cfg, ctx,
+                             seq_mask=live)
     if logits_at is None:
         x = x[:, -1:]
         pos = torch.full((b,), s, dtype=torch.int32, device=x.device)

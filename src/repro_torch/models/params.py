@@ -43,6 +43,20 @@ def ones_init() -> Initializer:
     return init
 
 
+def constant_init(value: float) -> Initializer:
+    def init(gen, shape, dtype, device):
+        return torch.full(shape, value, dtype=dtype, device=device)
+    return init
+
+
+def uniform_init(lo: float, hi: float) -> Initializer:
+    def init(gen, shape, dtype, device):
+        x = torch.rand(shape, generator=gen, dtype=torch.float32,
+                       device=device)
+        return (lo + (hi - lo) * x).to(dtype)
+    return init
+
+
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]

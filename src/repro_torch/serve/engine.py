@@ -9,11 +9,15 @@ The single-host paths of the reference, in eager PyTorch:
     prefill is a chunked span prefill (``prefill_chunk`` tokens per call,
     the final partial chunk bucketed to a power of two) through the same
     span datapath that verifies speculative drafts.
-  * **Dense KV backend** (``paged=False``): per-slot ring caches
+  * **Dense KV backend** (``paged=False``; the only one for Mamba and
+    RWKV stacks): per-slot ring caches and recurrent states
     (kv_cache.DenseKVCache). A prompt prefills in right-aligned spans at
-    absolute positions (``chunk_prefill``), or, when a sliding window
-    makes the cache a ring narrower than the serve window, in one
-    full-prompt prefill; its cache row is then copied into the slot.
+    absolute positions (``chunk_prefill``; hybrid stacks thread their
+    recurrent state through the spans), front-padded to a power-of-two
+    bucket in one call (``bucket_prefill``, pure state-family stacks), or,
+    when a sliding window makes the cache a ring narrower than the serve
+    window, in one full-prompt prefill; its cache row is then copied into
+    the slot.
   * **Prefix caching**: full prompt pages are content-addressed; an
     admission that hits shares the cached pages (copy-on-write protected)
     and prefills only the prompt suffix.
@@ -176,9 +180,10 @@ class ServeEngine:
         else:
             self.kv = DenseKVCache(cfg, self.ctx, self.window,
                                    self.max_batch)
-        # Front-padded bucketed prefill serves pure state-family stacks
-        # (mamba/rwkv), whose caches are not ported yet: api.cache_spec
-        # raises for them above, so this is False on every ported arch.
+        # Pure state-family stacks (mamba/rwkv) carry O(1) state: a prompt
+        # is front-padded to a power-of-two bucket (masked embeddings; the
+        # recurrent state stays zero through the pad prefix), which bounds
+        # the reference's compile count to log2(window).
         self.bucket_prefill = (not self.paged
                                and set(cfg.sublayer_kinds()) <=
                                {"mamba", "rwkv"})
@@ -210,6 +215,7 @@ class ServeEngine:
         # span_prefill_compiles and span_prefill_dense_compiles metrics
         self._span_shapes: set = set()
         self._dense_span_shapes: set = set()
+        self.prefill_bucket_sizes: set = set()  # bucketed prefill lengths
         self._use_spec = False  # per run: draft_k > 0 and greedy
         self._gen: Optional[torch.Generator] = None
         self._reset_carry()
@@ -286,6 +292,15 @@ class ServeEngine:
         row; returns (first token, cache)."""
         logits, cache = api.prefill_fn(params, {"tokens": tokens}, self.cfg,
                                        self.ctx, window=self.window)
+        return self._pick(logits, temp), cache
+
+    def _prefill_bucketed(self, params, tokens: Tensor, pad_left: Tensor,
+                          temp: float):
+        """Front-padded prefill of one request (state-family stacks) into
+        a fresh cache row; returns (first token, cache)."""
+        logits, cache = api.prefill_fn(params, {"tokens": tokens}, self.cfg,
+                                       self.ctx, window=self.window,
+                                       pad_left=pad_left)
         return self._pick(logits, temp), cache
 
     def _prefill_span_dense(self, params, cache, span: Tensor, pos0: Tensor,
@@ -498,6 +513,16 @@ class ServeEngine:
                 self.kv.register_prefix(slot, rp)
         elif self.chunk_prefill:
             first = self._span_prefill_dense(params, slot, rp, temp)
+        elif self.bucket_prefill:
+            sb = 1 << max(3, (s - 1).bit_length())  # pow2 >= s, floor 8
+            self.prefill_bucket_sizes.add(sb)
+            padded = np.zeros((1, sb), np.int32)
+            padded[0, sb - s:] = rp  # right-aligned: the pad leads
+            first, cache = self._prefill_bucketed(
+                params, torch.from_numpy(padded).to(self.device),
+                torch.full((1,), sb - s, dtype=torch.int32,
+                           device=self.device), temp)
+            self.kv.write_prefill(slot, cache)
         else:
             first, cache = self._prefill_dense(
                 params, torch.from_numpy(rp[None, :]).to(self.device), temp)

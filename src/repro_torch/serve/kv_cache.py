@@ -360,7 +360,8 @@ class PagedKVCache:
 
 @dataclasses.dataclass
 class DenseKVCache:
-    """Per-slot dense ring caches of the whole batch."""
+    """Per-slot dense caches of the whole batch: attention rings and the
+    recurrent states of Mamba and RWKV sublayers."""
 
     cfg: ModelConfig
     ctx: ModelContext
@@ -382,7 +383,9 @@ class DenseKVCache:
     def write_prefill(self, slot: int, prefill_cache: Dict[str, Any]
                       ) -> None:
         """Copy a 1-request prefill cache into batch row ``slot``, in
-        place (the reference's jitted ``write_dense``)."""
+        place (the reference's jitted ``write_dense``). Every leaf is
+        (n_blocks, B, ...) with the batch second: k/v, and the states
+        conv, ssm, tok, wkv and cm_tok alike."""
         for sl, sub in self.cache["blocks"].items():
             for name, arr in sub.items():
                 arr[:, slot] = prefill_cache["blocks"][sl][name][:, 0]

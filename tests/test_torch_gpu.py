@@ -22,7 +22,12 @@ dense ring decode kernel: f32 within 1e-5 (summation order), bf16 within
 one bf16 step of each row's largest |value|; the kernel run at pos - 1
 (one key dropped) fails the same limit; on the dense backend the kernel
 route's greedy tokens equal the plain route's (f32), and a decode chunk
-never waits for the device."""
+never waits for the device. The chunked RWKV-6 WKV kernel: out and the
+final state within 1e-5 of each case's largest |value| (summation order,
+and the cumulative decay's rounding carried by exp(+-cum)); the kernel
+without the current-token bonus fails that limit; a zero front pad keeps
+the state exactly 0; the state families' greedy tokens through the
+kernels equal the plain route's (f32)."""
 
 import numpy as np
 import pytest
@@ -35,7 +40,7 @@ from repro_torch.core.sdc import FaultModel, faulty_wrap
 from repro_torch.kernels import decode_attention as kern
 from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import matmul as mm
-from repro_torch.kernels import moe_gemm, ref
+from repro_torch.kernels import moe_gemm, ref, rwkv_scan
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch.train import make_optimizer
 from repro_torch.models import api
@@ -626,3 +631,119 @@ def test_dense_decode_chunk_never_waits_for_the_device(cuda, monkeypatch):
                                                         12), max_new=9)
                      for i in range(4)])
     assert chunks
+
+
+# (B, S, H, hd, chunk, nonzero s0): chip_smoke.py's cases at rwkv6's
+# widths (a bucketed prefill, decode shapes, chunks 8 and 13) and the smoke
+# width hd 16
+WKV_CASES = {
+    "prefill_1024": (1, 1024, 32, 64, 16, False),
+    "batch4_s16": (4, 16, 32, 64, 16, True),
+    "s8_chunk8": (2, 8, 32, 64, 8, True),
+    "s13_chunk13": (2, 13, 32, 64, 13, True),
+    "decode": (4, 1, 32, 64, 1, True),
+    "smoke_hd16": (2, 48, 4, 16, 16, True),
+}
+WKV_LIMIT = 1e-5
+
+
+def _wkv_inputs(dev, b, s, h, hd, with_s0, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    r, k, v = (torch.randn((b, s, h, hd), generator=g) for _ in range(3))
+    lw = torch.clamp(-torch.exp(torch.randn((b, s, h, hd), generator=g)),
+                     -4.0, 0.0)
+    u = torch.randn((h, hd), generator=g) * 0.5
+    s0 = (torch.randn((b, h, hd, hd), generator=g) * 0.3 if with_s0
+          else None)
+    return [None if x is None else x.to(dev) for x in (r, k, v, lw, u, s0)]
+
+
+def _wkv_err(got, want):
+    """max |got - want| over max(1, max |want|)."""
+    err = float((got - want).abs().max())
+    return err / max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("case", sorted(WKV_CASES))
+def test_rwkv_wkv_kernel_matches_plain(cuda, case):
+    b, s, h, hd, chunk, with_s0 = WKV_CASES[case]
+    r, k, v, lw, u, s0 = _wkv_inputs(cuda, b, s, h, hd, with_s0)
+    before = rwkv_scan.launches["rwkv_wkv"]
+    out, sf = rwkv_scan.rwkv_wkv(r, k, v, lw, u, s0, chunk=chunk)
+    want, wsf = rwkv_scan.chunked_wkv_plain(r, k, v, lw, u, s0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert rwkv_scan.launches["rwkv_wkv"] == before + 1
+    assert _wkv_err(out, want) <= WKV_LIMIT
+    assert _wkv_err(sf, wsf) <= WKV_LIMIT
+    bad, _ = rwkv_scan.rwkv_wkv(r, k, v, lw, u, s0, chunk=chunk,
+                                skip_bonus=True)
+    assert _wkv_err(bad, want) > WKV_LIMIT
+    if s0 is not None:  # in place: the final state over the initial one
+        st = s0.clone()
+        out2, sf2 = rwkv_scan.rwkv_wkv(r, k, v, lw, u, st, chunk=chunk,
+                                       state_out=st)
+        assert sf2 is st and torch.equal(out2, out) and torch.equal(st, sf)
+
+
+def test_rwkv_wkv_front_pad_keeps_zeros_exact(cuda):
+    r, k, v, lw, u, _ = _wkv_inputs(cuda, 2, 64, 32, 64, False, seed=4)
+    for x in (r, k, v):
+        x[:, :32] = 0.0
+    out, sf = rwkv_scan.rwkv_wkv(r, k, v, lw, u, chunk=16)
+    assert torch.all(out[:, :32] == 0)
+    head = [x[:, :32].contiguous() for x in (r, k, v, lw)]
+    _, head = rwkv_scan.rwkv_wkv(*head, u, chunk=16)
+    assert torch.all(head == 0)
+
+
+def test_rwkv_wkv_wrapper_rejects_bad_inputs(cuda):
+    r, k, v, lw, u, s0 = _wkv_inputs(cuda, 1, 32, 2, 16, True)
+    with pytest.raises(ValueError, match="chunk"):
+        rwkv_scan.rwkv_wkv(r, k, v, lw, u, s0, chunk=32)
+    with pytest.raises(ValueError):
+        rwkv_scan.rwkv_wkv(r, k, v, lw, u, s0, chunk=5)
+    with pytest.raises(ValueError):
+        rwkv_scan.rwkv_wkv(r.bfloat16(), k, v, lw, u, s0, chunk=16)
+    with pytest.raises(ValueError):
+        rwkv_scan.rwkv_wkv(r.transpose(1, 2), k, v, lw, u, s0, chunk=16)
+    with pytest.raises(ValueError):
+        rwkv_scan.rwkv_wkv(r, k, v, lw, u[:1], s0, chunk=16)
+    r8, k8, v8, lw8, u8, _ = _wkv_inputs(cuda, 1, 16, 2, 8, False)
+    with pytest.raises(ValueError, match="head dim"):
+        rwkv_scan.rwkv_wkv(r8, k8, v8, lw8, u8, chunk=16)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_1_6b", "jamba_v01_52b"])
+def test_state_engine_cuda_matches_ref(cuda, arch):
+    """Greedy tokens of the state families through the kernels equal the
+    plain route's (f32): rwkv6 smoke's bucketed prefill through the WKV
+    kernel, jamba smoke's span prefill, dense decode and grouped GEMM;
+    run and generate_pertoken (prime-length prompts: WKV chunk 1)."""
+    cfg = get_smoke(arch)
+    params = init_params(api.model_specs(cfg), seed=0, device=cuda)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(3, 30)))
+               for _ in range(5)]
+    batch = rng.integers(0, cfg.vocab_size, (2, 13))
+    need = ("rwkv_wkv",) if arch == "rwkv6_1_6b" else (
+        "decode_attention", "grouped_matmul")
+    mods = {"rwkv_wkv": rwkv_scan, "decode_attention": kern,
+            "grouped_matmul": moe_gemm}
+    outs, pert = [], []
+    for impl in ("cuda", "ref"):
+        ctx = ModelContext(compute_dtype=torch.float32, attn_impl=impl,
+                           mamba_chunk=16, rwkv_chunk=8, device=cuda)
+        eng = ServeEngine(cfg, ctx, window=48, max_batch=3, chunk=4,
+                          prefill_chunk=8)
+        assert not eng.paged
+        for mod in mods.values():
+            mod.reset_launches()
+        outs.append(eng.run(params, [Request(rid=i, prompt=p, max_new=14)
+                                     for i, p in enumerate(prompts)]))
+        pert.append(eng.generate_pertoken(params, {"tokens": batch},
+                                          max_new=9))
+        for name in need:
+            assert (mods[name].launches[name] > 0) == (impl == "cuda")
+    for i in range(len(prompts)):
+        np.testing.assert_array_equal(outs[0][i], outs[1][i])
+    assert torch.equal(pert[0], pert[1])

@@ -39,7 +39,8 @@ def smoke():
 
 
 def test_configs_are_copies_of_the_reference():
-    for arch in ("qwen2_0_5b", "mixtral_8x22b", "kimi_k2_1t_a32b"):
+    for arch in ("qwen2_0_5b", "mixtral_8x22b", "kimi_k2_1t_a32b",
+                 "rwkv6_1_6b", "jamba_v01_52b"):
         for mine, ref in ((registry.get_arch(arch), j_get_arch(arch)),
                           (registry.get_smoke(arch.replace("_", "-")),
                            j_get_smoke(arch))):
@@ -54,8 +55,20 @@ def test_configs_are_copies_of_the_reference():
             cfg.n_experts, cfg.experts_per_token, cfg.sliding_window,
             cfg.tie_embeddings) == \
         (56, 6144, 48, 8, 128, 16384, 32768, 8, 2, 4096, False)
+    cfg = registry.get_arch("rwkv6_1_6b")
+    assert (cfg.n_layers, cfg.d_model, cfg.rwkv_heads, cfg.rwkv_head_dim,
+            cfg.d_ff, cfg.vocab_size, set(cfg.sublayer_kinds())) == \
+        (24, 2048, 32, 64, 7168, 65536, {"rwkv"})
+    cfg = registry.get_arch("jamba_v01_52b")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size,
+            cfg.n_experts, cfg.experts_per_token, cfg.d_inner,
+            cfg.ssm_state_dim, cfg.block_len, cfg.sublayer_kinds(),
+            cfg.moe_mask()) == \
+        (32, 4096, 32, 8, 128, 14336, 65536, 16, 2, 8192, 16, 8,
+         ("mamba",) * 4 + ("attn",) + ("mamba",) * 3, (False, True) * 4)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        registry.get_arch("jamba_v01_52b")
+        registry.get_arch("whisper_small")
     with pytest.raises(KeyError):
         registry.get_arch("gpt5")
 
@@ -215,3 +228,33 @@ def test_weight_bridge_carries_expert_leaves_and_int8():
     assert tq["router"].dtype == torch.bfloat16
     for name in ("w_up", "w_gate", "w_down", "w_up_scale"):
         np.testing.assert_array_equal(tq[name].numpy(), jq[name])
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_1_6b", "jamba_v01_52b"])
+def test_state_family_spec_tree_and_bridge(arch):
+    """Mamba and RWKV leaves (a_log, dt_bias, the (5, D) mix, u_bonus)
+    have the reference's paths, shapes and logical axes at smoke and full
+    size, and cross the weight bridge exactly."""
+    for cfg in (registry.get_smoke(arch), registry.get_arch(arch)):
+        jspecs = _jax_leaves(japi.model_specs(cfg))
+        tspecs = dict(tree_items(tapi.model_specs(cfg)))
+        assert sorted(jspecs) == sorted(tspecs)
+        for path, spec in tspecs.items():
+            assert spec.shape == jspecs[path].shape, path
+            assert spec.logical == jspecs[path].logical, path
+    cfg = registry.get_smoke(arch)
+    jp = j_init_params(jax.random.key(2), japi.model_specs(cfg))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    jl = _jax_leaves(jp)
+    for path, t in tree_items(tp):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(jl[path]),
+                                      err_msg=path)
+    core = tp["blocks"]["sl0"]["core"]
+    if arch == "rwkv6_1_6b":
+        assert tuple(core["mix"].shape) == (cfg.n_blocks, 5, cfg.d_model)
+    else:
+        # the S4D-real init is deterministic: the port's own init equals it
+        mine = init_params(tapi.model_specs(cfg), seed=0, device="cpu")
+        np.testing.assert_allclose(
+            mine["blocks"]["sl0"]["core"]["a_log"].numpy(),
+            core["a_log"].numpy(), rtol=1e-6)
