@@ -74,6 +74,29 @@ result line):
                spans), the dense decode kernel (launches = decode steps)
                and the grouped GEMM; then the same 8 layers in f32, greedy
                tokens through the kernels equal to the plain path's;
+  5d. dlrm   - the port's DLRM example (python -m
+               repro_torch.examples.dlrm_sparsecore) on the card: 120 SGD
+               steps of batch 256, every embedding bag through the
+               embedding-bag kernel (launches = 3 x 120), the loss falling;
+               then the plain route from the same params and batches, each
+               step's loss within rel 1e-5 of the kernel route's (f32);
+  5e. enc-dec and M-RoPE - full-width, full-depth Whisper-small (12 + 12
+               layers, bf16) on the dense backend: 8 requests of 4-64
+               decoder tokens, each with (1, 1500, 768) frames from the
+               seed, 64 new, window 448, the prefill through the flash
+               kernel (launches = (12 + 2 x 12) x prefills; the cross-
+               attention with S_k = 1500), the decode through the dense
+               decode kernel twice per layer (launches = 2 x 12 x decode
+               steps), one request under torch.profiler, then f32 (TF32
+               off) greedy tokens through the kernels equal to the plain
+               path's at full depth; then full-width, full-depth
+               Qwen2-VL-7B (28 layers, bf16), paged: 8 requests of 100-600
+               tokens sharing a 64-token system prompt, 32 new, the odd
+               half with explicit (3, S) M-RoPE rows (a 16 x 16 merged
+               image grid, then text from max + 1), launches = 28 x decode
+               steps and 28 x span calls, prefix-cache hits from the text
+               half only, one request under torch.profiler, then f32
+               token equality at 4 layers;
   6. resilient serve - full-width qwen2-0.5B under the startup self-test,
                the deterministic fault schedule and SLO admission: BIST on
                the card (8 matmul-kernel launches, 1 paged-decode launch;
@@ -119,6 +142,18 @@ width hd 16 and a front-padded row whose outputs and state must stay
 exactly 0; out and the final state within WKV_LIMIT of the case's largest
 |value|, the kernel without the current-token bonus (a planted fault)
 failing it.
+The kernels phase also holds the embedding-bag kernel against its plain
+version, f32 and bf16 tables: the DLRM example's three tables (5000 x 32,
+20000 x 32, 200 x 16; N 256, bag 4), the JAX tests' shapes, a ragged D,
+repeated indices in a bag, negative and out-of-range indices (wrapped
+once, then clamped), bags of one index with weight 1 (the row exactly),
+and one table at MLPerf DLRM-DCNv2's scale (40M x 128; N 8192, bag 100);
+f32 within GATHER_F32_LIMIT of the case's largest |value|, bf16 within
+one bf16 step of each row's, the kernel without the bag's last position
+failing the limit, F.embedding_bag timed beside it. And the flash kernel
+at Whisper's cross-attention (12 heads x 64, S_q 64 and 448, S_k 1500,
+bidirectional, f32 and bf16), the kernel told S_k - 1 keys failing the
+flash limits.
 Training turns on torch's deterministic mode (process-wide), so it runs
 last.
 
@@ -159,6 +194,7 @@ KERNELS = {
         "src/repro/kernels/decode_attention.py:276",
     "grouped_matmul": "src/repro/kernels/moe_gemm.py:55",
     "rwkv_wkv": "src/repro/kernels/rwkv_scan.py:75",
+    "sparse_gather_sum": "src/repro/kernels/sparse_gather.py:44",
 }
 SOURCES = {
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -170,6 +206,7 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/paged_attention.cu",
     "grouped_matmul": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
     "rwkv_wkv": "src/repro_torch/kernels/csrc/rwkv_wkv.cu",
+    "sparse_gather_sum": "src/repro_torch/kernels/csrc/sparse_gather.cu",
 }
 EPS32 = 1.1920929e-07
 MIXTRAL_LAYERS = 4  # of 56: the bf16 weights of 4 layers fill ~21 GB
@@ -177,8 +214,13 @@ JAMBA_LAYERS = 8  # of 32: one Jamba block, ~27 GB of bf16 weights
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the run's log, stamped with the seconds since the script
+    started, so the log shows where the time limit goes."""
+    print(f"[{time.perf_counter() - T_START:6.1f}s] {msg}", flush=True)
 
 
 # ------------------------------------------------------------------ timing
@@ -776,6 +818,181 @@ def wkv_case(label: str, b: int, s: int, h: int, hd: int, chunk: int,
     }
 
 
+# (label, V, D, N, bag, kind): the DLRM example's three tables (N 256, bag
+# 4), the JAX tests' shapes, a ragged D (scalar loads), repeated indices in
+# every bag, negative and out-of-range indices, bags of one index with
+# weight 1 (the row itself, exactly), and one table at the scale of MLPerf
+# Training's DLRM-DCNv2 (Criteo 1TB multi-hot): 40M rows, the cap of its
+# largest tables, 128 wide, N 8192 bags of 100, its largest multi-hot bag
+GATHER_CASES = (
+    ("dlrm_user", 5000, 32, 256, 4, "uniform"),
+    ("dlrm_item", 20000, 32, 256, 4, "uniform"),
+    ("dlrm_cat", 200, 16, 256, 4, "uniform"),
+    ("jax_128x64", 128, 64, 16, 4, "uniform"),
+    ("jax_512x128", 512, 128, 8, 8, "uniform"),
+    ("ragged_d37", 1000, 37, 64, 5, "uniform"),
+    ("repeated", 50, 64, 128, 16, "repeat"),
+    ("out_of_range", 1000, 32, 64, 6, "oob"),
+    ("bag1_weight1", 127, 32, 127, 1, "one_hot"),
+    ("dcnv2_40m", 40_000_000, 128, 8192, 100, "uniform"),
+)
+# f32: of the case's largest |want| (fmaf against a product and a sum in
+# the plain version); bf16: one bf16 step of each row's largest |want|
+GATHER_F32_LIMIT = 1e-5
+
+
+def gather_case(label: str, dtype: str, v: int, d: int, n: int, bag: int,
+                kind: str, seed: int = 0):
+    """The embedding-bag kernel at one shape: its reading against the
+    plain version (and, for bags of one index with weight 1, equality with
+    the row), the reading of the kernel without the bag's last position,
+    which must fail the limit, times of the kernel, the plain version and
+    F.embedding_bag on the same inputs, and the bound. The table is freed
+    before the case returns."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import sparse_gather as sg
+
+    dev = torch.device("cuda")
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    table = torch.randn((v, d), generator=g, device=dev).to(dt)
+    idx = torch.randint(0, v, (n, bag), generator=g, device=dev,
+                        dtype=torch.int32)
+    w = torch.randn((n, bag), generator=g, device=dev)
+    if kind == "repeat":  # every bag names its first row again
+        idx[:, bag // 2:] = idx[:, :1]
+    elif kind == "oob":  # wrap once then clamp, as JAX's gather
+        idx[:, 0] = -1
+        idx[:, 1] = v + 2
+        idx[:, 2] = -v - 4
+        idx[::2, 3] = -torch.arange(1, n // 2 + 1, device=dev,
+                                    dtype=torch.int32)
+    elif kind == "one_hot":
+        idx[:, 0] = torch.arange(n, device=dev, dtype=torch.int32) % v
+        w.fill_(1.0)
+    run = lambda: sg.sparse_gather_sum(table, idx, w)
+    plain = lambda: sg.sparse_gather_sum_plain(table, idx, w)
+    before = sg.launches["sparse_gather_sum"]
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    if sg.launches["sparse_gather_sum"] != before + 1:
+        raise AssertionError("sparse_gather_sum: the wrapper did not count "
+                             "its launch")
+    err = float((got.float() - want.float()).abs().max())
+
+    def reading(x):
+        if dtype == "bf16":
+            return bf16_steps(x, want)
+        return (float((x.float() - want.float()).abs().max())
+                / max(float(want.float().abs().max()), 1e-30))
+
+    limit = 1.0 if dtype == "bf16" else GATHER_F32_LIMIT
+    got_reading = reading(got)
+    if not bool(torch.isfinite(got.float()).all()) or got_reading > limit:
+        raise AssertionError(f"sparse_gather_sum {label} {dtype}: reading "
+                             f"{got_reading} > {limit} (max_abs_err {err})")
+    rows = sg.table_rows(idx, v)
+    if kind == "one_hot" and not torch.equal(got, table[rows[:, 0]]):
+        raise AssertionError(f"sparse_gather_sum {label} {dtype}: a bag of "
+                             f"one row with weight 1 is not the row")
+    planted = reading(sg.sparse_gather_sum(table, idx, w, skip_last=True))
+    if planted <= limit:
+        raise AssertionError(f"sparse_gather_sum {label} {dtype}: the kernel"
+                             f" without the last bag position passes the "
+                             f"limit ({planted})")
+    # F.embedding_bag over the rows the gather reads (it refuses indices
+    # out of range) with the weights in the table's dtype, as it requires
+    w_lib = w.to(dt)
+    library = lambda: F.embedding_bag(rows, table, mode="sum",
+                                      per_sample_weights=w_lib)
+    lib_err = float((library().float() - want.float()).abs().max())
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    ms = timed_ms(run, flush)
+    plain_ms = timed_ms(plain, flush, iters=5)
+    library_ms = timed_ms(library, flush)
+    # least time: each distinct row these indices name read once, idx and
+    # w read once, out written once; 2 flops per weighted element (f32)
+    unique = int(torch.unique(rows).numel())
+    elem = table.element_size()
+    nbytes = float(unique * d * elem + n * bag * 8 + n * d * elem)
+    flops = 2.0 * n * bag * d
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS["float32"]
+    del table, idx, w, w_lib, rows, got, want
+    torch.cuda.empty_cache()
+    return {
+        "name": "sparse_gather_sum", "label": label, "dtype": dtype,
+        "v": v, "d": d, "n": n, "bag": bag, "kind": kind,
+        "unique_rows": unique, "max_abs_err": err, "reading": got_reading,
+        "limit": limit, "planted_fault": planted,
+        "library_max_abs_err": lib_err, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "flops": flops,
+    }
+
+
+def flash_cross_case(dtype: str, sq: int, sk: int = 1500, bh: int = 12,
+                     d: int = 64, seed: int = 0):
+    """The flash kernel with keys of another length than the queries
+    (bidirectional): Whisper-small's cross-attention, 12 heads x 64 over
+    its 1500 encoder frames, at a decode prompt's S_q. The limits of
+    flash_case; the kernel told S_k - 1 keys (a planted fault) must fail
+    them. Inputs are drawn on the CPU from the seed."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as flash
+
+    dev = torch.device("cuda")
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((bh, sq, d), generator=g).to(dt).to(dev)
+    k, v = (torch.randn((bh, sk, d), generator=g).to(dt).to(dev)
+            for _ in range(2))
+    run = lambda: flash.flash_attention(q, k, v, causal=False)
+    plain = lambda: flash.flash_attention_plain(q, k, v, causal=False)
+    before = flash.launches["flash_attention"]
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    if flash.launches["flash_attention"] != before + 1:
+        raise AssertionError("flash: the wrapper did not count its launch")
+    err = float((got.float() - want.float()).abs().max())
+    steps = row_steps(got, want) if dtype == "bf16" else None
+    if (not bool(torch.isfinite(got.float()).all()) or err > TOL[dtype]
+            or (steps is not None and steps > FLASH_ROW_C)):
+        raise AssertionError(f"flash_attention cross {dtype} sq={sq} sk={sk}"
+                             f": max_abs_err {err} (limit {TOL[dtype]}), "
+                             f"row steps {steps} (limit {FLASH_ROW_C})")
+    bad = flash.flash_attention(q, k, v, causal=False, drop_last_key=True)
+    bad_err = float((bad.float() - want.float()).abs().max())
+    planted = row_steps(bad, want) if dtype == "bf16" else bad_err
+    if bad_err <= TOL[dtype] and (dtype != "bf16"
+                                  or planted <= FLASH_ROW_C):
+        raise AssertionError(f"flash_attention cross {dtype}: S_k - 1 keys "
+                             f"pass the limit ({planted})")
+    library = lambda: F.scaled_dot_product_attention(q[None], k[None],
+                                                     v[None])
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    ms = timed_ms(run, flush)
+    plain_ms = timed_ms(plain, flush, iters=5)
+    library_ms = timed_ms(library, flush)
+    flops = 4.0 * d * bh * sq * sk
+    nbytes = 2 * bh * (sq + sk) * d * q.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS["float32" if dtype == "f32" else "bfloat16"]
+    return {
+        "name": "flash_attention", "dtype": dtype, "bh": bh, "s": sq,
+        "sk": sk, "d": d, "causal": False, "window": None,
+        "max_abs_err": err, "row_steps": steps, "planted_fault": [planted],
+        "fault": "S_k - 1 keys", "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "flops": flops,
+    }
+
+
 # ------------------------------------------------------------------- serve
 
 
@@ -876,15 +1093,33 @@ def serve_run(label, mods, engine, params, reqs, vocab, need):
     return out, counts, wall
 
 
+def device_profiler():
+    """torch.profiler recording the card's activity only (kernels, copies
+    and the CUDA runtime calls that launch them): the busy share and the
+    kernel table read nothing else, and the host's op events, three or
+    more for each kernel, took about half of this script's time to
+    process."""
+    import torch
+    return torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+
+
+def read_profile(prof, wall_s: float, top: int = 12) -> float:
+    """``print_profile``'s busy share of a profiled window, which must
+    hold device time."""
+    from repro_torch.launch.serve import print_profile
+    busy = print_profile(prof, wall_s, top=top)
+    if not busy > 0:
+        raise AssertionError("the profile recorded no device time")
+    return busy
+
+
 def profiled_serve(label, engine, params, reqs, wall=None) -> None:
     """A serve on a fresh engine under torch.profiler: the device-busy
     share of its wall and the kernels that took the most device time.
     ``wall``: the unprofiled wall of the same serve, when it ran."""
     import torch
-    from repro_torch.launch.serve import print_profile
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with device_profiler() as prof:
         t0 = time.perf_counter()
         engine.run(params, reqs)
         torch.cuda.synchronize()
@@ -892,7 +1127,17 @@ def profiled_serve(label, engine, params, reqs, wall=None) -> None:
     log(f"profile[{label}]: {len(reqs)} requests"
         + ("" if wall is None else
            f", unprofiled wall of the same run {wall:.3f}s"))
-    print_profile(prof, prof_wall)
+    t0 = time.perf_counter()
+    read_profile(prof, prof_wall)
+    log(f"profile[{label}]: its events read in "
+        f"{time.perf_counter() - t0:.1f}s of the host")
+
+
+def _fresh(req):
+    """An unserved copy of a request, its extras included."""
+    out = type(req)(rid=req.rid, prompt=req.prompt, max_new=req.max_new)
+    out.extras = dict(req.extras)
+    return out
 
 
 def f32_equality(label, mods, cfg, params, reqs, need, trim=False,
@@ -916,8 +1161,8 @@ def f32_equality(label, mods, cfg, params, reqs, need, trim=False,
                              chunk=8, page_size=16, paged=paged)
         outs[impl], counts, _ = serve_run(
             f"{label}_f32_{impl}", mods, engine, params,
-            [type(r)(rid=r.rid, prompt=r.prompt, max_new=r.max_new)
-             for r in reqs], cfg.vocab_size, need if impl == "cuda" else ())
+            [_fresh(r) for r in reqs], cfg.vocab_size,
+            need if impl == "cuda" else ())
         if impl == "ref" and any(counts.values()):
             raise AssertionError(f"{label}: the plain path launched {counts}")
         if trim and engine.counters["pages_trimmed"] == 0:
@@ -1336,6 +1581,292 @@ def serve_state(mods):
     return rwkv_counts, jamba_counts
 
 
+# ----------------------------------------------------------- dlrm train
+
+
+def dlrm_gradient() -> None:
+    """One backward of the kernel route's ``_EmbeddingBag`` on the card at
+    the user table's shape, against gradients built independently from
+    one-hot matrices in f64: the table gradient adds ``w[i,j] * g[i]`` to
+    each index's row after a negative one wraps once and drops what is
+    still outside [0, V); the weight gradient dots the clamped row the
+    forward read with ``g[i]``. A gradient that clamped instead of
+    dropping must fail the limit."""
+    import torch
+    from repro_torch.examples import dlrm_sparsecore as dlrm
+
+    (v, d), n, bag = dlrm.TABLES["user"], dlrm.BATCH, dlrm.BAG
+    g = torch.Generator().manual_seed(5)
+    table = torch.randn((v, d), generator=g) * 0.05
+    idx = torch.randint(0, v, (n, bag), generator=g, dtype=torch.int32)
+    idx[:, -1] = idx[:, 0]  # a repeated row in every bag
+    idx[0, 1], idx[1, 1], idx[2, 1] = -1, v + 2, -v - 4
+    w, up = torch.randn((n, bag), generator=g), torch.randn((n, d),
+                                                           generator=g)
+    leaves = [t.cuda().requires_grad_() for t in (table, w)]
+    out = dlrm._EmbeddingBag.apply(leaves[0], idx.cuda(), leaves[1], "cuda")
+    got_t, got_w = (x.cpu() for x in torch.autograd.grad(out, leaves,
+                                                         up.cuda()))
+    flat = idx.long().flatten()
+    wrapped = torch.where(flat < 0, flat + v, flat)
+    keep = (wrapped >= 0) & (wrapped < v)
+    rows = torch.arange(n * bag)
+    contrib = (w.double().flatten()[:, None]
+               * up.double().repeat_interleave(bag, 0))
+    drop = torch.zeros((n * bag, v), dtype=torch.float64)
+    drop[rows[keep], wrapped[keep]] = 1
+    clamp = torch.zeros((n * bag, v), dtype=torch.float64)
+    clamp[rows, wrapped.clamp(0, v - 1)] = 1
+    want_t = drop.T @ contrib
+    want_w = ((clamp @ table.double())
+              * up.double().repeat_interleave(bag, 0)).sum(-1).view(n, bag)
+    reading = lambda got, want: float((got.double() - want).abs().max()
+                                      / want.abs().max())
+    r_t, r_w = reading(got_t, want_t), reading(got_w, want_w)
+    fault = reading(got_t, clamp.T @ contrib)
+    if r_t > 1e-5 or r_w > 1e-5 or fault <= 1e-5:
+        raise AssertionError(f"dlrm gradient: table {r_t}, weights {r_w} "
+                             f"(limit 1e-5 of the largest |value|); a "
+                             f"clamping gradient read {fault}")
+    log(f"dlrm gradient on the card (user table {v} x {d}, N {n}, bag "
+        f"{bag}, indices -1, V+2, -V-4 planted): table {r_t:.3e}, weights "
+        f"{r_w:.3e} of the largest |value| against f64 one-hot products "
+        f"(limit 1e-5); a gradient that clamps reads {fault:.3e}")
+
+
+def train_dlrm(mods):
+    """This slice's path, part A: the port's DLRM example on the card
+    through its entry point (120 SGD steps, every embedding bag through
+    the kernel: launches = 3 x steps), then both routes from the same
+    params and batches: the kernel route's losses and final params must
+    match the plain route's within rel 1e-5 at f32 (the backward's
+    scatter-add uses atomics), and one backward must match gradients
+    built independently (``dlrm_gradient``). Runs before the train phase
+    turns on deterministic mode. Returns the launch counts of the entry
+    point's run."""
+    import torch
+    from repro_torch.examples import dlrm_sparsecore as dlrm
+
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    losses = dlrm.main([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(mods)
+    want = {name: 0 for name in counts}
+    want["sparse_gather_sum"] = 3 * dlrm.STEPS
+    if counts != want:
+        raise AssertionError(f"dlrm: launches {counts}, want {want}")
+    if not losses[-1] < losses[0] or len(losses) != dlrm.STEPS:
+        raise AssertionError(f"dlrm: losses {losses}")
+    init = lambda: dlrm.init(torch.Generator().manual_seed(0), "cuda")
+    final = {}
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    final["ref"], plain = dlrm.train(init(), dlrm.STEPS, impl="ref",
+                                     device="cuda")
+    plain_wall = time.perf_counter() - t0
+    if any(read_counts(mods).values()):
+        raise AssertionError(f"dlrm: the plain route launched "
+                             f"{read_counts(mods)}")
+    final["cuda"], _ = dlrm.train(init(), dlrm.STEPS, impl="cuda",
+                                  device="cuda")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
+    leaf = max(float((final["cuda"][k] - p).abs().max() / p.abs().max())
+               for k, p in final["ref"].items())
+    if rel > 1e-5 or leaf > 1e-5:
+        raise AssertionError(f"dlrm: the kernel route differs from the "
+                             f"plain route's by rel {rel} in the losses, "
+                             f"{leaf} of a final leaf's largest |value|")
+    log(f"dlrm: {dlrm.STEPS} steps of batch {dlrm.BATCH} in {wall:.3f}s "
+        f"({1e3 * wall / dlrm.STEPS:.2f} ms/step; plain route "
+        f"{1e3 * plain_wall / dlrm.STEPS:.2f} ms/step), loss "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f}, max rel loss difference "
+        f"to the plain route {rel:.3e}, final leaves within {leaf:.3e} of "
+        f"their largest |value|, launches={counts}")
+    dlrm_gradient()
+    return counts
+
+
+# ----------------------------------------------------- enc-dec and M-RoPE
+
+
+WHISPER_LENS = (4, 64, 17, 40, 9, 33, 52, 25)
+
+
+def whisper_requests(cfg, seed: int, lens, max_new: int):
+    """Decoder prompts of ``lens`` tokens, each with (1, 1500, d_model)
+    frames from the seed (x 0.1, as the serve launcher makes them)."""
+    import numpy as np
+    reqs = dense_requests(cfg.vocab_size, seed, lens, max_new)
+    rng = np.random.default_rng(seed + 1)
+    for r in reqs:
+        r.extras["enc_feats"] = rng.standard_normal(
+            (1, cfg.encoder_seq, cfg.d_model), dtype=np.float32) * 0.1
+    return reqs
+
+
+def whisper_launches(label, engine, counts) -> None:
+    """Each decode step runs the dense kernel twice per decoder layer (the
+    ring, then the cross k/v); each prefill runs the flash kernel once per
+    encoder layer and twice per decoder layer (causal, then cross)."""
+    cfg = engine.cfg
+    steps, prefills = (engine.counters["decode_steps"],
+                       engine.counters["prefills"])
+    flash = (cfg.encoder_layers + 2 * cfg.n_layers) * prefills
+    if (steps == 0 or counts["decode_attention"] != 2 * cfg.n_layers * steps
+            or counts["flash_attention"] != flash):
+        raise AssertionError(
+            f"{label}: decode_attention {counts['decode_attention']} != 2 x "
+            f"{cfg.n_layers} x {steps} steps or flash_attention "
+            f"{counts['flash_attention']} != {flash}")
+
+
+def vl_requests(cfg, seed: int, n: int = 8, max_new: int = 32,
+                grid: int = 16, shared: int = 64):
+    """n prompts of 100-600 tokens sharing a ``shared``-token system
+    prompt. The odd half carry explicit (3, S) rows shaped like
+    Qwen2-VL's: the text prefix, a grid x grid merged image (t fixed, h
+    and w in raster order), then text from max + 1."""
+    import numpy as np
+    from repro_torch.serve.scheduler import Request
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, cfg.vocab_size, shared)
+    reqs = []
+    for rid in range(n):
+        s = int(rng.integers(100, 601))
+        if rid % 2:
+            s = max(s, shared + grid * grid + 16)
+        prompt = np.concatenate([system,
+                                 rng.integers(0, cfg.vocab_size, s - shared)])
+        r = Request(rid=rid, prompt=prompt, max_new=max_new)
+        if rid % 2:
+            t = np.arange(s, dtype=np.int32)
+            rows = np.stack([t, t, t])
+            img = np.arange(grid * grid)
+            rows[0, shared:shared + grid * grid] = shared
+            rows[1, shared:shared + grid * grid] = shared + img // grid
+            rows[2, shared:shared + grid * grid] = shared + img % grid
+            nxt = shared + grid
+            rows[:, shared + grid * grid:] = nxt + np.arange(
+                s - shared - grid * grid)
+            r.extras["positions"] = rows[:, None, :]
+        reqs.append(r)
+    return reqs
+
+
+def serve_encdec(mods):
+    """This slice's path, part B: full-width, full-depth Whisper-small
+    (12 + 12 layers) on the dense backend, its prefill through the flash
+    kernel (the encoder over 1500 frames, causal decoder, cross-attention
+    with S_k = 1500), its decode through the dense decode kernel twice per
+    layer; then f32 token equality at full depth. Then full-width,
+    full-depth Qwen2-VL-7B, paged, half its requests with explicit M-RoPE
+    rows, through the paged kernels; then f32 token equality at 4 layers.
+    Returns the launch counts of the two bf16 runs."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import api
+    from repro_torch.models.blocks import ModelContext
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    # 1. Whisper-small, bf16, window 448 (its text context)
+    cfg = get_arch("whisper_small")
+    t0 = time.perf_counter()
+    params = init_params(api.model_specs(cfg), seed=0, dtype=torch.bfloat16,
+                         device="cuda")
+    torch.cuda.synchronize()
+    log(f"whisper: {cfg.encoder_layers} + {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads x {cfg.resolved_head_dim}, "
+        f"vocab {cfg.vocab_size}, {cfg.encoder_seq} frames; "
+        f"{_gb(params):.2f} GB of bf16 weights made in "
+        f"{time.perf_counter() - t0:.1f}s")
+    ctx = ModelContext(compute_dtype=torch.bfloat16, device="cuda")
+    reqs = whisper_requests(cfg, 0, WHISPER_LENS, 64)
+    make = lambda: ServeEngine(cfg, ctx, window=448, max_batch=4, chunk=8)
+    engine = make()
+    if engine.paged or engine.chunk_prefill or engine.bucket_prefill:
+        raise AssertionError("whisper: expected the dense full-prompt "
+                             "prefill")
+    need = ("flash_attention", "decode_attention")
+    _, whisper_counts, wall = serve_run("whisper_bf16", mods, engine,
+                                        params, reqs, cfg.vocab_size, need)
+    whisper_launches("whisper_bf16", engine, whisper_counts)
+    log(f"  decode_attention launches {whisper_counts['decode_attention']}"
+        f" = 2 x {cfg.n_layers} layers x {engine.counters['decode_steps']} "
+        f"decode steps; flash_attention {whisper_counts['flash_attention']}"
+        f" = ({cfg.encoder_layers} + 2 x {cfg.n_layers}) x "
+        f"{engine.counters['prefills']} prefills")
+    # one request under the profiler: processing the device events of
+    # two took most of a minute of the host
+    profiled_serve("whisper_bf16", make(), params,
+                   whisper_requests(cfg, 0, WHISPER_LENS, 64)[:1])
+    del params, engine
+    torch.cuda.empty_cache()
+    params = init_params(api.model_specs(cfg), seed=1, device="cuda")
+    f32_equality("whisper", mods, cfg, params,
+                 whisper_requests(cfg, 1, (4, 30, 61, 12, 45), 24), need,
+                 paged=False, launches=whisper_launches)
+    del params
+    torch.cuda.empty_cache()
+
+    # 2. Qwen2-VL-7B, bf16, paged
+    cfg = get_arch("qwen2_vl_7b")
+    t0 = time.perf_counter()
+    params = init_params(api.model_specs(cfg), seed=0, dtype=torch.bfloat16,
+                         device="cuda")
+    torch.cuda.synchronize()
+    log(f"qwen2-vl: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.resolved_head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, mrope sections "
+        f"{cfg.mrope_sections}; {_gb(params):.2f} GB of bf16 weights made "
+        f"in {time.perf_counter() - t0:.1f}s")
+    reqs = vl_requests(cfg, 0)
+    make = lambda: ServeEngine(cfg, ctx, window=_window(reqs), max_batch=4,
+                               chunk=8, page_size=16)
+    engine = make()
+    paged = ("paged_decode_attention", "paged_decode_span_attention")
+    _, vl_counts, _ = serve_run("qwen2_vl_bf16", mods, engine, params, reqs,
+                                cfg.vocab_size, paged)
+    steps = engine.counters["decode_steps"]
+    spans = engine.counters["prefill_span_calls"]
+    if (vl_counts["paged_decode_attention"] != cfg.n_layers * steps
+            or vl_counts["paged_decode_span_attention"]
+            != cfg.n_layers * spans):
+        raise AssertionError(f"qwen2-vl: launches {vl_counts} != "
+                             f"{cfg.n_layers} x ({steps} steps, {spans} "
+                             f"spans)")
+    hits = {r.rid: r.cached_prefix_len for r in reqs}
+    text_hits = sum(v for rid, v in hits.items() if rid % 2 == 0)
+    if (any(hits[rid] for rid in hits if rid % 2) or text_hits == 0
+            or engine.kv.counters["prefix_hit_tokens"] != text_hits):
+        raise AssertionError(f"qwen2-vl: prefix hits {hits}, kv "
+                             f"{engine.kv.counters}: only the text half may "
+                             f"hit")
+    log(f"  paged decode launches {vl_counts['paged_decode_attention']} = "
+        f"{cfg.n_layers} x {steps} decode steps; span launches "
+        f"{vl_counts['paged_decode_span_attention']} = {cfg.n_layers} x "
+        f"{spans} span calls; prefix hits by request {hits} (the "
+        f"explicit-rows half bypasses the cache)")
+    profiled_serve("qwen2_vl_bf16", make(), params,
+                   vl_requests(cfg, 0)[1:2])  # one with explicit rows
+    del params, engine
+    torch.cuda.empty_cache()
+    cfg4 = dataclasses.replace(cfg, n_layers=4)
+    params = init_params(api.model_specs(cfg4), seed=1, device="cuda")
+    log(f"qwen2-vl f32: 4 layers, {_gb(params):.2f} GB of weights")
+    short = vl_requests(cfg4, 1, n=4, max_new=16)
+    for r in short:
+        r.prompt = r.prompt[:400]
+        if "positions" in r.extras:
+            r.extras["positions"] = r.extras["positions"][:, :, :400]
+    f32_equality("qwen2_vl", mods, cfg4, params, short, paged)
+    del params
+    torch.cuda.empty_cache()
+    return whisper_counts, vl_counts
+
+
 # ------------------------------------------------------- resilient serve
 
 # the chaos plan of the JAX package's fault tests (tests/test_serve_faults.py)
@@ -1585,7 +2116,6 @@ def train_qwen(mods):
     import torch
     from repro_torch.configs.registry import get_arch
     from repro_torch.data.pipeline import DataConfig, DataPipeline
-    from repro_torch.launch.serve import print_profile
     from repro_torch.launch.train import build_trainer, make_optimizer
     from repro_torch.models.blocks import ModelContext
     from repro_torch.train.step import init_train_state, make_train_step
@@ -1630,9 +2160,7 @@ def train_qwen(mods):
         # over each window's own wall time (timed inside the profiler),
         # after one unreported step under it (the profiler's first use
         # adds host time to its window)
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts):
+        with device_profiler():
             state, m = trainer.train_step(
                 state, trainer.pipeline.batch_for_step(TRAIN_STEPS))
             float(m["loss"])
@@ -1642,15 +2170,15 @@ def train_qwen(mods):
                                                        + 2 * w + i)
                        for i in range(2)]
             torch.cuda.synchronize()
-            with torch.profiler.profile(activities=acts) as prof:
+            with device_profiler() as prof:
                 t0 = time.perf_counter()
                 for b in batches:
                     state, m = trainer.train_step(state, b)
                     float(m["loss"])
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
-            busy.append(print_profile(prof, walls[-1], top=25 if w == 0
-                                      else 0))
+            busy.append(read_profile(prof, walls[-1], top=25 if w == 0
+                                     else 0))
             log(f"  device time by class: {device_classes(prof)}")
         log(f"train[qwen2_0_5b bf16] device busy in 3 profiled windows of "
             f"2 steps: {[round(100 * b, 1) for b in busy]} %; window walls "
@@ -1740,7 +2268,8 @@ def main() -> int:
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import moe_gemm
     from repro_torch.kernels import rwkv_scan
-    mods = (kern, moe_gemm, flash, mm, rwkv_scan)
+    from repro_torch.kernels import sparse_gather
+    mods = (kern, moe_gemm, flash, mm, rwkv_scan, sparse_gather)
 
     # f32 comparisons run in full f32 (matmul and cuDNN)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1832,11 +2361,16 @@ def main() -> int:
                for dt in ("bf16", "f32")
                for kw in ({}, {"window": 512}, {"causal": False},
                           {"bh": 12, "s": 128, "d": 8})]
+    # Whisper's cross-attention: S_k = 1500 encoder frames
+    flashes += [flash_cross_case(dt, sq) for dt in ("bf16", "f32")
+                for sq in (64, 448)]
     for v in flashes:
         log(f"kernel flash_attention {v['dtype']} bh={v['bh']} s={v['s']} "
+            f"sk={v.get('sk', v['s'])} "
             f"d={v['d']} causal={v['causal']} window={v['window']}: "
             f"max_abs_err={v['max_abs_err']:.3e} row_steps={v['row_steps']} "
-            f"planted_fault(window-1, window+1)={v['planted_fault']} "
+            f"planted_fault({v.get('fault', 'window-1, window+1')})="
+            f"{v['planted_fault']} "
             f"ms={v['ms']:.4f} "
             f"plain_ms={v['plain_ms']:.4f} library_ms={v['library_ms']:.4f} "
             f"bound_ms={v['bound_ms']:.4f} ({v['bound_by']})")
@@ -1877,6 +2411,19 @@ def main() -> int:
             f"ms={v['ms']:.4f} plain_ms={v['plain_ms']:.4f} library_ms=null "
             f"(no PyTorch call computes the recurrence) "
             f"bound_ms={v['bound_ms']:.5f} ({v['bound_by']})")
+    gathers = [gather_case(label, dt, v_, d_, n_, bag, kind)
+               for label, v_, d_, n_, bag, kind in GATHER_CASES
+               for dt in ("f32", "bf16")]
+    for v in gathers:
+        log(f"kernel sparse_gather_sum {v['label']} {v['dtype']} V={v['v']} "
+            f"D={v['d']} N={v['n']} bag={v['bag']} unique_rows="
+            f"{v['unique_rows']}: max_abs_err={v['max_abs_err']:.3e} "
+            f"reading={v['reading']:.3e} (limit {v['limit']}) "
+            f"planted_fault(last position dropped)={v['planted_fault']:.3e} "
+            f"ms={v['ms']:.4f} plain_ms={v['plain_ms']:.4f} "
+            f"library_ms={v['library_ms']:.4f} (F.embedding_bag, max_abs_err"
+            f" {v['library_max_abs_err']:.3e}) bound_ms={v['bound_ms']:.5f} "
+            f"({v['bound_by']})")
     log(f"kernels phase done at {time.perf_counter() - t_start:.1f}s")
 
     # 4-5. the serving paths, each with the counts read around its runs
@@ -1890,6 +2437,11 @@ def main() -> int:
     counts["rwkv6_1_6b"], counts[f"jamba_v01_52b_{JAMBA_LAYERS}l"] = \
         serve_state(mods)
     log(f"state phase done at {time.perf_counter() - t_start:.1f}s")
+    counts["dlrm"] = train_dlrm(mods)
+    log(f"dlrm phase done at {time.perf_counter() - t_start:.1f}s")
+    counts["whisper_small"], counts["qwen2_vl_7b"] = serve_encdec(mods)
+    log(f"enc-dec and M-RoPE phase done at "
+        f"{time.perf_counter() - t_start:.1f}s")
     counts["qwen2_0_5b_bist"], counts["qwen2_0_5b_chaos"] = \
         serve_resilient(mods)
     log(f"resilient serve phase done at {time.perf_counter() - t_start:.1f}s")
@@ -1922,8 +2474,8 @@ def main() -> int:
             mine = flashes
             rep = flashes[0]
             keys = ("dtype", "bh", "s", "d", "causal", "window",
-                    "max_abs_err", "row_steps", "planted_fault", "ms", "plain_ms", "library_ms",
-                    "bound_ms", "bound_by")
+                    "max_abs_err", "row_steps", "planted_fault", "ms",
+                    "plain_ms", "library_ms", "bound_ms", "bound_by")
         elif kname == "decode_attention":
             main_path = counts["phi4_mini_3_8b_dense"]
             mine = denses
@@ -1940,6 +2492,15 @@ def main() -> int:
             keys = ("label", "b", "s", "h", "hd", "chunk", "s0",
                     "front_pad", "max_abs_err", "limit", "planted_fault",
                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+        elif kname == "sparse_gather_sum":
+            main_path = counts["dlrm"]
+            mine = gathers
+            rep = [v for v in mine if v["label"] == "dlrm_item"
+                   and v["dtype"] == "f32"][0]
+            keys = ("label", "dtype", "v", "d", "n", "bag", "kind",
+                    "unique_rows", "max_abs_err", "reading", "limit",
+                    "planted_fault", "ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by")
         elif kname == "grouped_matmul":
             mine = gemms
             rep = [v for v in mine if v["x"] == "bf16" and v["w"] == "bf16"
@@ -1963,10 +2524,11 @@ def main() -> int:
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep["library_ms"],
-            "variants": [{k: v[k] for k in keys} for v in mine],
+            "variants": [{k: v.get(k) for k in keys + ("sk",) if k in v}
+                         for v in mine],
         })
     log(f"total {time.perf_counter() - t_start:.1f}s")
-    log(smi)
+    print(smi, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

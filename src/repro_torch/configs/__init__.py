@@ -1,6 +1,5 @@
 from repro_torch.configs.registry import (  # noqa: F401
     ARCH_IDS,
-    PORTED,
     get_arch,
     get_smoke,
 )

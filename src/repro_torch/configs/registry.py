@@ -1,10 +1,9 @@
 """Architecture registry of the PyTorch port.
 
-A copy of ``repro/configs/registry.py`` trimmed to what the port serves:
-each ported architecture lives in ``repro_torch/configs/<id>.py`` and
-exposes ``CONFIG`` (the published numbers) and ``SMOKE`` (a reduced
-same-family config for CPU tests). Architectures the reference knows but
-the port does not serve yet raise instead of resolving.
+A copy of ``repro/configs/registry.py`` trimmed to the architectures:
+each lives in ``repro_torch/configs/<id>.py`` and exposes ``CONFIG`` (the
+published numbers) and ``SMOKE`` (a reduced same-family config for CPU
+tests). Every architecture of the reference resolves.
 """
 
 from __future__ import annotations
@@ -27,10 +26,6 @@ ARCH_IDS = (
     "rwkv6_1_6b",
 )
 
-PORTED = ("qwen2_0_5b", "mixtral_8x22b", "kimi_k2_1t_a32b",
-          "internlm2_1_8b", "phi4_mini_3_8b", "qwen2_5_3b", "rwkv6_1_6b",
-          "jamba_v01_52b")
-
 
 def canonical(arch: str) -> str:
     """Public ids use dashes and dots; module names use underscores."""
@@ -41,9 +36,6 @@ def _module(arch: str):
     name = canonical(arch)
     if name not in ARCH_IDS:
         raise KeyError(f"unknown architecture {arch!r}")
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"{arch}: not yet ported to repro_torch (ported: {PORTED})")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

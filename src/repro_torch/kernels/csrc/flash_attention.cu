@@ -1,9 +1,11 @@
 // Flash attention (forward) for Hopper (sm_90a), plain C interface.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
-// (flash_attention / _flash_kernel): blockwise online-softmax attention over
-// (BH, S, D), heads folded into the leading dimension. For every query row i
-// and key j, the score is q_i . k_j / sqrt(D) in fp32; the mask is positional
+// (flash_attention / _flash_kernel): blockwise online-softmax attention of
+// q (BH, Sq, D) over k, v (BH, Sk, D), heads folded into the leading
+// dimension; Sk may differ from Sq only for bidirectional attention (an
+// encoder-decoder's cross-attention). For every query row i and key j, the
+// score is q_i . k_j / sqrt(D) in fp32; the mask is positional
 // (causal: j <= i; window w: i - j < w; bidirectional: none) and masked
 // scores are -1e30, as in the reference; the softmax runs online over key
 // tiles with fp32 running (max m, sum l, accumulator acc); the probabilities
@@ -44,7 +46,10 @@
 //   * no atomics and no split of the key range: every output element is
 //     summed in one fixed order, so a call is bit-reproducible;
 //   * D from 1 to 256, zero-padded in shared memory to 16, 32, 64, 128 or
-//     256; any S (keys past S carry no weight, rows past S are not written).
+//     256; any Sq and Sk (keys past Sk carry no weight, rows past Sq are not
+//     written);
+//   * planted fault: the wrapper may pass kv_len = Sk - 1, so the kernel
+//     reads rows of Sk keys but weighs only the first Sk - 1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,7 +69,9 @@ struct Args {
   const void* k;
   const void* v;
   void* out;
-  int BH, S, D;
+  int BH, Sq, D;
+  int Sk;     // keys in a row of k and v (the row stride)
+  int kv_len;  // keys that carry weight: Sk, or less for a planted fault
   int causal;  // 1: key position <= query position
   int window;  // > 0: query position - key position < window
   float scale;
@@ -79,8 +86,8 @@ __device__ __forceinline__ bool allowed(const Args& a, int qp, int kp) {
 // block may see.
 __device__ __forceinline__ void tile_range(const Args& a, int q0, int kt,
                                            int& t_begin, int& t_end) {
-  const int q1 = min(q0 + kBlockQ, a.S);
-  const int hi = a.causal ? q1 : a.S;
+  const int q1 = min(q0 + kBlockQ, a.Sq);
+  const int hi = a.causal ? q1 : a.kv_len;
   const int lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
   t_begin = lo / kt;
   t_end = (hi + kt - 1) / kt;
@@ -145,21 +152,21 @@ __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
 __device__ __forceinline__ void load_rows_bf16(const Args& a,
                                                __nv_bfloat16* dst, int ld,
                                                const __nv_bfloat16* src,
-                                               int row0, int nrows) {
+                                               int S, int row0, int nrows) {
   if (a.vec) {
     const int cpr = a.D / 8;  // 16-byte chunks per row
     for (int i = threadIdx.x; i < nrows * cpr; i += blockDim.x) {
       const int r = i / cpr, c = i - (i / cpr) * cpr;
       const int row = row0 + r;
-      const __nv_bfloat16* s = src + (size_t)min(row, a.S - 1) * a.D + c * 8;
-      cp_async16(dst + r * ld + c * 8, s, row < a.S ? 16 : 0);
+      const __nv_bfloat16* s = src + (size_t)min(row, S - 1) * a.D + c * 8;
+      cp_async16(dst + r * ld + c * 8, s, row < S ? 16 : 0);
     }
   } else {
     for (int i = threadIdx.x; i < nrows * a.D; i += blockDim.x) {
       const int r = i / a.D, c = i - (i / a.D) * a.D;
       const int row = row0 + r;
       dst[r * ld + c] =
-          row < a.S ? src[(size_t)row * a.D + c] : __float2bfloat16(0.f);
+          row < S ? src[(size_t)row * a.D + c] : __float2bfloat16(0.f);
     }
   }
 }
@@ -175,13 +182,14 @@ __global__ void __launch_bounds__(128) flash_bf16_kernel(const Args a) {
   __nv_bfloat16* ks = qs + kBlockQ * LD;  // 2 stages of KT x LD
   __nv_bfloat16* vs = ks + 2 * KT * LD;
 
-  const int n_qt = (a.S + kBlockQ - 1) / kBlockQ;
+  const int n_qt = (a.Sq + kBlockQ - 1) / kBlockQ;
   const int q0 = (n_qt - 1 - (int)blockIdx.x) * kBlockQ;
-  const size_t base = (size_t)blockIdx.y * a.S * a.D;
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(a.q) + base;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) + base;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) + base;
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.out) + base;
+  const size_t qbase = (size_t)blockIdx.y * a.Sq * a.D;
+  const size_t kbase = (size_t)blockIdx.y * a.Sk * a.D;
+  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(a.q) + qbase;
+  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) + kbase;
+  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) + kbase;
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.out) + qbase;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;  // quad and lane in it
   const int row_a = q0 + warp * 16 + g;   // fragment rows of this thread
@@ -196,10 +204,10 @@ __global__ void __launch_bounds__(128) flash_bf16_kernel(const Args a) {
 
   int t_begin, t_end;
   tile_range(a, q0, KT, t_begin, t_end);
-  load_rows_bf16(a, qs, LD, qg, q0, kBlockQ);
+  load_rows_bf16(a, qs, LD, qg, a.Sq, q0, kBlockQ);
   if (t_begin < t_end) {
-    load_rows_bf16(a, ks, LD, kg, t_begin * KT, KT);
-    load_rows_bf16(a, vs, LD, vg, t_begin * KT, KT);
+    load_rows_bf16(a, ks, LD, kg, a.Sk, t_begin * KT, KT);
+    load_rows_bf16(a, vs, LD, vg, a.Sk, t_begin * KT, KT);
   }
   cp_async_commit();
 
@@ -214,8 +222,10 @@ __global__ void __launch_bounds__(128) flash_bf16_kernel(const Args a) {
   for (int it = t_begin; it < t_end; ++it) {
     const int buf = (it - t_begin) & 1;
     if (it + 1 < t_end) {  // the next tile streams in while this one runs
-      load_rows_bf16(a, ks + (buf ^ 1) * KT * LD, LD, kg, (it + 1) * KT, KT);
-      load_rows_bf16(a, vs + (buf ^ 1) * KT * LD, LD, vg, (it + 1) * KT, KT);
+      load_rows_bf16(a, ks + (buf ^ 1) * KT * LD, LD, kg, a.Sk, (it + 1) * KT,
+                     KT);
+      load_rows_bf16(a, vs + (buf ^ 1) * KT * LD, LD, vg, a.Sk, (it + 1) * KT,
+                     KT);
     }
     cp_async_commit();
     cp_async_wait<1>();  // Q and this tile have landed
@@ -269,8 +279,9 @@ __global__ void __launch_bounds__(128) flash_bf16_kernel(const Args a) {
       for (int e = 0; e < 4; ++e) {
         const int kp = k0 + j * 8 + t * 2 + (e & 1);
         const int qp = e < 2 ? row_a : row_b;
-        float x = -INFINITY;  // past S: no weight at all
-        if (kp < a.S) x = allowed(a, qp, kp) ? s[j][e] * a.scale : kNegInf;
+        float x = -INFINITY;  // past the keys: no weight at all
+        if (kp < a.kv_len)
+          x = allowed(a, qp, kp) ? s[j][e] * a.scale : kNegInf;
         s[j][e] = x;
         if (e < 2) mx_a = fmaxf(mx_a, x);
         else mx_b = fmaxf(mx_b, x);
@@ -335,7 +346,7 @@ __global__ void __launch_bounds__(128) flash_bf16_kernel(const Args a) {
     for (int e = 0; e < 4; ++e) {
       const int col = n * 8 + t * 2 + (e & 1);
       const int row = e < 2 ? row_a : row_b;
-      if (col < a.D && row < a.S)
+      if (col < a.D && row < a.Sq)
         og[(size_t)row * a.D + col] =
             __float2bfloat16(acc[n][e] / (e < 2 ? den_a : den_b));
     }
@@ -350,15 +361,15 @@ __global__ void __launch_bounds__(128) flash_bf16_kernel(const Args a) {
 // stride DP); rows past S become zeros, padding columns stay zero.
 template <int DP>
 __device__ __forceinline__ void load_rows_f32(const Args& a, float* dst,
-                                              const float* src, int row0,
-                                              int nrows) {
+                                              const float* src, int S,
+                                              int row0, int nrows) {
   if (a.vec) {
     const int cpr = a.D / 4;
     for (int i = threadIdx.x; i < nrows * cpr; i += blockDim.x) {
       const int r = i / cpr, c = i - (i / cpr) * cpr;
       const int row = row0 + r;
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row < a.S)
+      if (row < S)
         x = __ldg(reinterpret_cast<const float4*>(src + (size_t)row * a.D) +
                   c);
       *reinterpret_cast<float4*>(dst + r * DP + c * 4) = x;
@@ -367,7 +378,7 @@ __device__ __forceinline__ void load_rows_f32(const Args& a, float* dst,
     for (int i = threadIdx.x; i < nrows * a.D; i += blockDim.x) {
       const int r = i / a.D, c = i - (i / a.D) * a.D;
       const int row = row0 + r;
-      dst[r * DP + c] = row < a.S ? src[(size_t)row * a.D + c] : 0.f;
+      dst[r * DP + c] = row < S ? src[(size_t)row * a.D + c] : 0.f;
     }
   }
 }
@@ -379,13 +390,14 @@ __global__ void __launch_bounds__(256) flash_f32_kernel(const Args a) {
   float* ks = reinterpret_cast<float*>(smem);  // KT x DP
   float* vs = ks + KT * DP;
 
-  const int n_qt = (a.S + kBlockQ - 1) / kBlockQ;
+  const int n_qt = (a.Sq + kBlockQ - 1) / kBlockQ;
   const int q0 = (n_qt - 1 - (int)blockIdx.x) * kBlockQ;
-  const size_t base = (size_t)blockIdx.y * a.S * a.D;
-  const float* qg = static_cast<const float*>(a.q) + base;
-  const float* kg = static_cast<const float*>(a.k) + base;
-  const float* vg = static_cast<const float*>(a.v) + base;
-  float* og = static_cast<float*>(a.out) + base;
+  const size_t qbase = (size_t)blockIdx.y * a.Sq * a.D;
+  const size_t kbase = (size_t)blockIdx.y * a.Sk * a.D;
+  const float* qg = static_cast<const float*>(a.q) + qbase;
+  const float* kg = static_cast<const float*>(a.k) + kbase;
+  const float* vg = static_cast<const float*>(a.v) + kbase;
+  float* og = static_cast<float*>(a.out) + qbase;
   const int tid = threadIdx.x;
   const int c = tid & 3;
   const int qp = q0 + (tid >> 2);
@@ -397,7 +409,7 @@ __global__ void __launch_bounds__(256) flash_f32_kernel(const Args a) {
   for (int i = 0; i < NPT; ++i) {
     const int d = c + 4 * i;
     // (q * scale) . k, the reference kernel's order
-    qv[i] = (qp < a.S && d < a.D) ? qg[(size_t)qp * a.D + d] * a.scale : 0.f;
+    qv[i] = (qp < a.Sq && d < a.D) ? qg[(size_t)qp * a.D + d] * a.scale : 0.f;
     acc[i] = 0.f;
   }
   float m = kNegInf, l = 0.f;
@@ -407,8 +419,8 @@ __global__ void __launch_bounds__(256) flash_f32_kernel(const Args a) {
   for (int it = t_begin; it < t_end; ++it) {
     const int k0 = it * KT;
     __syncthreads();  // the previous tile is no longer read
-    load_rows_f32<DP>(a, ks, kg, k0, KT);
-    load_rows_f32<DP>(a, vs, vg, k0, KT);
+    load_rows_f32<DP>(a, ks, kg, a.Sk, k0, KT);
+    load_rows_f32<DP>(a, vs, vg, a.Sk, k0, KT);
     __syncthreads();
 
     float s[KT];
@@ -422,8 +434,8 @@ __global__ void __launch_bounds__(256) flash_f32_kernel(const Args a) {
       part += __shfl_xor_sync(0xffffffffu, part, 1);
       part += __shfl_xor_sync(0xffffffffu, part, 2);
       const int kp = k0 + j;
-      float x = -INFINITY;  // past S: no weight at all
-      if (kp < a.S) x = allowed(a, qp, kp) ? part : kNegInf;
+      float x = -INFINITY;  // past the keys: no weight at all
+      if (kp < a.kv_len) x = allowed(a, qp, kp) ? part : kNegInf;
       s[j] = x;
       mx = fmaxf(mx, x);
     }
@@ -447,7 +459,7 @@ __global__ void __launch_bounds__(256) flash_f32_kernel(const Args a) {
     }
   }
 
-  if (qp < a.S) {
+  if (qp < a.Sq) {
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < NPT; ++i) {
@@ -471,7 +483,7 @@ int launch_kernel(Kernel kern, size_t& opted_in, const Args& a, int threads,
     if (e != cudaSuccess) return (int)e;
     opted_in = smem;
   }
-  const dim3 grid((a.S + kBlockQ - 1) / kBlockQ, a.BH);
+  const dim3 grid((a.Sq + kBlockQ - 1) / kBlockQ, a.BH);
   kern<<<grid, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -504,23 +516,29 @@ int launch_dp(const Args& a, cudaStream_t s) {
 
 }  // namespace
 
-// Returns 0 or the cudaError_t of the launch. q, k, v and out are device
-// pointers to contiguous (BH, S, D) tensors of `dtype` (0 f32, 1 bf16);
+// Returns 0 or the cudaError_t of the launch. q and out are device pointers
+// to contiguous (BH, Sq, D) tensors of `dtype` (0 f32, 1 bf16), k and v to
+// contiguous (BH, Sk, D) ones; Sk != Sq only when causal == 0 and
+// window <= 0. The first kv_len (<= Sk) keys of a row carry weight.
 // window <= 0 means none. Asynchronous on `stream`.
 extern "C" int flash_attention(int dtype, const void* q, const void* k,
-                               const void* v, void* out, int BH, int S, int D,
-                               int causal, int window, float scale,
-                               void* stream) {
-  if (BH == 0 || S == 0) return 0;
-  if (BH < 0 || S < 0 || D <= 0 || D > 256 || BH > 65535)
+                               const void* v, void* out, int BH, int Sq,
+                               int Sk, int kv_len, int D, int causal,
+                               int window, float scale, void* stream) {
+  if (BH == 0 || Sq == 0) return 0;
+  if (BH < 0 || Sq < 0 || Sk < 1 || kv_len < 0 || kv_len > Sk || D <= 0 ||
+      D > 256 || BH > 65535)
     return (int)cudaErrorInvalidValue;
+  if (Sk != Sq && (causal || window > 0)) return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
   a.k = k;
   a.v = v;
   a.out = out;
   a.BH = BH;
-  a.S = S;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.kv_len = kv_len;
   a.D = D;
   a.causal = causal;
   a.window = window;

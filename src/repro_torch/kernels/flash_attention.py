@@ -2,9 +2,12 @@
 ``csrc/flash_attention.cu`` and its plain-torch version.
 
 Port of ``repro/kernels/flash_attention.py::flash_attention`` (the Pallas
-training/prefill kernel). A wrapper given CPU tensors computes the plain
-version; given CUDA tensors it launches the kernel or raises. Each launch
-adds one to ``launches["flash_attention"]``.
+training/prefill kernel). q is (BH, S_q, D) and k, v are (BH, S_k, D);
+S_k may differ from S_q only for bidirectional attention (an
+encoder-decoder's cross-attention): causal and windowed masks compare a
+query's position with a key's in one sequence. A wrapper given CPU tensors
+computes the plain version; given CUDA tensors it launches the kernel or
+raises. Each launch adds one to ``launches["flash_attention"]``.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels.build import load
+from repro_torch.kernels.ref import check_lengths
 
 SOURCE = "flash_attention.cu"
 NEG_INF = -1e30
@@ -32,7 +36,7 @@ def _lib() -> ctypes.CDLL:
     lib = load(SOURCE)
     if lib.flash_attention.argtypes is None:
         lib.flash_attention.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+            [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
             + [ctypes.c_float, ctypes.c_void_p])
         lib.flash_attention.restype = ctypes.c_int
     return lib
@@ -50,9 +54,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
         if t.dtype != q.dtype:
             raise ValueError(f"{name} dtype {t.dtype}, q {q.dtype}")
-        if t.shape != q.shape:
-            raise ValueError(f"{name} shape {tuple(t.shape)}, q "
-                             f"{tuple(q.shape)}")
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"dtype {q.dtype} not in (float32, bfloat16)")
     if q.dim() != 3 or not 1 <= q.shape[2] <= 256 or q.shape[0] > 65535:
@@ -69,16 +70,19 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The Pallas kernel's arithmetic in plain torch: every query row at
     once, key blocks of ``block_k`` in sequence with the online softmax's
     fp32 (m, l, acc); scores (q * scale) . k, masked entries -1e30, the
-    probabilities cast to v's dtype before an fp32 PV product."""
+    probabilities cast to v's dtype before an fp32 PV product. k, v may
+    hold S_k != S_q keys when the attention is bidirectional."""
+    check_lengths(q, k, v, causal=causal, window=window)
     bh, s, d = q.shape
+    sk = k.shape[1]
     dev = q.device
     qf = q.float() * d ** -0.5
     m = torch.full((bh, s), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((bh, s), dtype=torch.float32, device=dev)
     acc = torch.zeros((bh, s, d), dtype=torch.float32, device=dev)
     qpos = torch.arange(s, device=dev)[:, None]
-    bk = min(block_k, s)
-    for k0 in range(0, s, bk):
+    bk = min(block_k, sk)
+    for k0 in range(0, sk, bk):
         kb, vb = k[:, k0:k0 + bk], v[:, k0:k0 + bk]
         scores = qf @ kb.float().transpose(1, 2)
         kpos = torch.arange(k0, k0 + kb.shape[1], device=dev)[None, :]
@@ -99,20 +103,26 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """q, k, v: (BH, S, D) contiguous, f32 or bf16, one dtype; causal,
-    windowed (query - key < window) or bidirectional. Returns (BH, S, D)
-    in q's dtype."""
+                    causal: bool = True, window: Optional[int] = None,
+                    drop_last_key: bool = False) -> torch.Tensor:
+    """q: (BH, S_q, D), k, v: (BH, S_k, D), contiguous, f32 or bf16, one
+    dtype; causal, windowed (query - key < window) or bidirectional, and
+    S_k == S_q unless bidirectional. Returns (BH, S_q, D) in q's dtype.
+    ``drop_last_key`` tells the kernel S_k - 1 keys, a planted fault for
+    the checks."""
     if q.device.type == "cpu":
+        if drop_last_key:
+            raise ValueError("drop_last_key is a fault of the CUDA kernel")
         return flash_attention_plain(q, k, v, causal=causal, window=window)
+    check_lengths(q, k, v, causal=causal, window=window)
     _check(q, k, v, window)
     bh, s, d = q.shape
+    sk = k.shape[1]
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _lib().flash_attention(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), bh, s, d, int(causal),
+        out.data_ptr(), bh, s, sk, sk - int(drop_last_key), d, int(causal),
         0 if window is None else int(window), float(d ** -0.5), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "

@@ -1,12 +1,13 @@
 """Public kernel entry points with an implementation switch
 (``repro/kernels/ops.py`` without the mesh branches): the tiled matmul,
 flash attention, dense ring decode attention, paged attention, the
-m-grouped MoE GEMM and the chunked RWKV-6 WKV.
+m-grouped MoE GEMM, the chunked RWKV-6 WKV and the embedding bag.
 
 ``impl="cuda"`` launches the hand-written Hopper kernel and needs CUDA
 tensors; ``impl="ref"`` runs the plain-torch oracle (an f32 dot; the full
 softmax; the ring-masked softmax; gather the pages, then attend; one f32
-product per expert; the chunked WKV) on any device.
+product per expert; the chunked WKV; gather the bags' rows, then an f32
+weighted sum) on any device.
 Model code picks the impl through ``ModelContext.attn_impl`` (and
 ``moe_impl``).
 """
@@ -23,6 +24,7 @@ from repro_torch.kernels import matmul as _matmul
 from repro_torch.kernels import moe_gemm as _moe_gemm
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rwkv_scan as _rwkv
+from repro_torch.kernels import sparse_gather as _gather
 
 IMPLS = ("cuda", "ref")
 
@@ -48,7 +50,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, impl: str = "cuda",
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     impl: str = "cuda", causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
-    """(BH, S, D) in/out: causal, windowed or bidirectional attention."""
+    """q (BH, S_q, D), k, v (BH, S_k, D): causal, windowed or
+    bidirectional attention; S_k != S_q only when bidirectional."""
     _cuda_only(q, impl)
     if impl == "ref":
         return _ref.flash_attention_ref(q, k, v, causal=causal,
@@ -146,3 +149,15 @@ def rwkv_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     state_out=state_out)
     return _rwkv.rwkv_wkv(r, k, v, logw, u, s0, chunk=chunk,
                           state_out=state_out)
+
+
+def sparse_gather_sum(table: torch.Tensor, indices: torch.Tensor,
+                      weights: torch.Tensor, *, impl: str = "cuda"
+                      ) -> torch.Tensor:
+    """Embedding bag: out[i] = sum_j weights[i,j] * table[indices[i,j]].
+    table (V, D) f32/bf16; indices (N, bag) int32; weights (N, bag) f32.
+    Returns (N, D) in the table's dtype."""
+    _cuda_only(table, impl)
+    if impl == "ref":
+        return _ref.sparse_gather_sum_ref(table, indices, weights)
+    return _gather.sparse_gather_sum(table, indices, weights)

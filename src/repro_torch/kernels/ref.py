@@ -1,11 +1,11 @@
 """Plain-torch twins of the matmul, flash-attention, dense ring decode,
-paged-attention, grouped-GEMM and RWKV-6 WKV oracles in
+paged-attention, grouped-GEMM, RWKV-6 WKV and embedding-bag oracles in
 ``repro/kernels/ref.py`` (the correctness contract of the CUDA kernels).
 
-They materialize what the kernels never do: the (S, S) score matrix, each
-request's contiguous KV view, gathered (and dequantized) from the page
-pool, and each expert's weights in f32; the WKV oracle walks the
-recurrence one token at a time.
+They materialize what the kernels never do: the (S_q, S_k) score matrix,
+each request's contiguous KV view, gathered (and dequantized) from the
+page pool, each expert's weights in f32 and every bag's (bag, D) rows;
+the WKV oracle walks the recurrence one token at a time.
 """
 
 from __future__ import annotations
@@ -24,16 +24,35 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor,
     return (a.float() @ b.float()).to(out_dtype or a.dtype)
 
 
+def check_lengths(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool, window: Optional[int]) -> None:
+    """q (BH, S_q, D), k and v (BH, S_k, D); S_k != S_q only for
+    bidirectional attention without a window."""
+    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}: want (BH, S_q, D) and two "
+                         f"(BH, S_k, D)")
+    if k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
+        raise ValueError(f"k {tuple(k.shape)} does not match q "
+                         f"{tuple(q.shape)} in BH or D")
+    if k.shape[1] != q.shape[1] and (causal or window is not None):
+        raise ValueError(f"S_k {k.shape[1]} != S_q {q.shape[1]}: causal and "
+                         f"windowed attention need one sequence")
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
                         window: Optional[int] = None) -> torch.Tensor:
-    """q, k, v: (BH, S, D). The full (S, S) softmax in fp32."""
+    """q: (BH, S_q, D); k, v: (BH, S_k, D). The full (S_q, S_k) softmax in
+    fp32; masks compare query position i with key position j."""
+    check_lengths(q, k, v, causal=causal, window=window)
     s, d = q.shape[1], q.shape[2]
+    sk = k.shape[1]
     dev = q.device
     scores = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * (d ** -0.5)
     qpos = torch.arange(s, device=dev)[:, None]
-    kpos = torch.arange(s, device=dev)[None, :]
-    allowed = torch.ones((s, s), dtype=torch.bool, device=dev)
+    kpos = torch.arange(sk, device=dev)[None, :]
+    allowed = torch.ones((s, sk), dtype=torch.bool, device=dev)
     if causal:
         allowed &= qpos >= kpos
     if window is not None:
@@ -152,3 +171,18 @@ def rwkv_wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  state + u[:, :, None] * kv))
         state = torch.exp(logw[:, t])[:, :, None] * state + kv
     return torch.stack(outs, dim=1)
+
+
+def sparse_gather_sum_ref(table: torch.Tensor, indices: torch.Tensor,
+                          weights: torch.Tensor) -> torch.Tensor:
+    """Embedding bag: (V, D) table, (N, bag) indices and weights ->
+    (N, D) in the table's dtype, the weighted sum in f32. ``table[idx]``
+    in jnp wraps a negative index once and clamps the result to
+    [0, V-1], where torch's indexing raises, so the rows are normalised
+    first."""
+    v = table.shape[0]
+    idx = indices.long()
+    idx = torch.where(idx < 0, idx + v, idx).clamp(0, v - 1)
+    rows = table[idx].float()  # (N, bag, D)
+    out = torch.einsum("nbd,nb->nd", rows, weights.float())
+    return out.to(table.dtype)

@@ -251,9 +251,18 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     where = f"{'paged' if engine.paged else 'dense'} on {device}"
 
     if args.trace:
-        trace = lambda: make_trace(args.trace, cfg.vocab_size, args.seed,
-                                   prompt_hi=args.prompt_len,
-                                   new_hi=args.max_new)
+        def trace():
+            reqs = make_trace(args.trace, cfg.vocab_size, args.seed,
+                              prompt_hi=args.prompt_len, new_hi=args.max_new)
+            if cfg.is_encoder_decoder:
+                # enc-dec requests carry their audio features
+                rng = np.random.default_rng(args.seed)
+                for req in reqs:
+                    req.extras["enc_feats"] = rng.standard_normal(
+                        (1, cfg.encoder_seq, cfg.d_model),
+                        dtype=np.float32) * 0.1
+            return reqs
+
         if args.profile:
             # a warm-up run builds the kernels and initializes the
             # libraries; fresh engines keep the prefix cache cold
@@ -291,6 +300,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     rng = np.random.default_rng(args.seed)
     batch = {"tokens": rng.integers(0, cfg.vocab_size,
                                     (args.batch, args.prompt_len))}
+    if cfg.is_encoder_decoder:
+        batch["enc_feats"] = rng.standard_normal(
+            (args.batch, cfg.encoder_seq, cfg.d_model),
+            dtype=np.float32) * 0.1
     t0 = time.perf_counter()
     out = engine.generate(params, batch, max_new=args.max_new,
                           temperature=args.temperature, generator=gen)

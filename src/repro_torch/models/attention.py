@@ -4,7 +4,9 @@ full sequence, and decode against gathered caches.
 ``full_attention`` has two routes: the flash kernel (``impl="cuda"``,
 at any sequence length; the reference's Pallas kernel needed
 ``S % 128 == 0``, the CUDA kernel does not) or the q-chunked plain path
-(``impl="ref"``), whose score matrix never exceeds (chunk x S) per head.
+(``impl="ref"``), whose score matrix never exceeds (chunk x S_k) per head.
+Both take keys of another length than the queries when the attention is
+bidirectional (an encoder-decoder's cross-attention).
 The kernel route is ``_FlashAttention``: its forward is
 ``kernels.ops.flash_attention``, its backward the gradient of the
 q-chunked plain path at the same q, k, v, which is the gradient the
@@ -29,7 +31,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.ops import apply_rope
+from repro_torch.models.ops import apply_mrope, apply_rope
 
 NEG_INF = -1e30
 
@@ -48,13 +50,20 @@ def fit_chunk(seq: int, chunk: int) -> int:
 
 
 def apply_positional(q: torch.Tensor, k: torch.Tensor, cfg: ModelConfig,
-                     positions: torch.Tensor
+                     positions: torch.Tensor,
+                     mrope_positions: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RoPE at ``positions`` (..., S); M-RoPE at the explicit (3, ..., S)
+    rows ``mrope_positions``, or, for text-only rows (None), at the three
+    streams broadcast from ``positions``, where M-RoPE reduces to RoPE."""
     if cfg.pos_emb == "rope":
         return (apply_rope(q, positions, cfg.rope_theta),
                 apply_rope(k, positions, cfg.rope_theta))
     if cfg.pos_emb == "mrope":
-        raise NotImplementedError("mrope is not ported yet")
+        mp = (mrope_positions if mrope_positions is not None
+              else positions[None].expand(3, *positions.shape))
+        return (apply_mrope(q, mp, cfg.rope_theta, cfg.mrope_sections),
+                apply_mrope(k, mp, cfg.rope_theta, cfg.mrope_sections))
     return q, k  # learned / none: no rotary positions
 
 
@@ -100,7 +109,9 @@ def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        attn_type: str, window: Optional[int],
                        q_chunk: int) -> torch.Tensor:
     """The plain route: query chunks of ``q_chunk`` rows (the largest
-    divisor of S that fits) each attend over every key."""
+    divisor of S_q that fits) each attend over every key; the S_k keys
+    sit at positions 0 .. S_k - 1 (another length than the queries' only
+    under a bidirectional mask)."""
     b, s = q.shape[:2]
     dev = q.device
     kpos = _positions((b,), k.shape[1], dev)
@@ -128,9 +139,9 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, attn_type, window, q_chunk, impl):
         b, s, h, d = q.shape
 
-        def fold(x):  # (B,S,H,D) -> (B*H,S,D), contiguous
+        def fold(x):  # (B,S,H,D) -> (B*H,S,D), contiguous; S_q or S_k
             return _expand_kv(x, h).transpose(1, 2).contiguous().view(
-                b * h, s, d)
+                b * h, x.shape[1], d)
 
         out = kops.flash_attention(
             fold(q), fold(k), fold(v), impl=impl,
@@ -154,7 +165,8 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    attn_type: Optional[str] = None,
                    window: Optional[int] = None,
                    impl: str = "ref") -> torch.Tensor:
-    """Training/prefill attention. q: (B,S,H,D); k,v: (B,S,KV,D).
+    """Training/prefill attention. q: (B,S_q,H,D); k,v: (B,S_k,KV,D),
+    S_k == S_q unless the attention is bidirectional (cross-attention).
 
     impl="cuda" routes through the flash kernel (CUDA tensors only): KV
     heads expand to full heads, heads fold into the batch dimension.

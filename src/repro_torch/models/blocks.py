@@ -403,14 +403,16 @@ def block_decode_paged(block_params, x, pages, page_table, pos, cfg, ctx):
 
 def sublayer_decode_span_paged(p, x: Tensor, pages: Dict[str, Tensor],
                                page_table: Tensor, pos: Tensor, live: Tensor,
-                               cfg: ModelConfig, ctx: ModelContext, idx: int
+                               cfg: ModelConfig, ctx: ModelContext, idx: int,
+                               mrope_positions: Optional[Tensor] = None
                                ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """T-token span decode against the paged pool.
 
     x: (B,T,D) at absolute positions ``pos .. pos+T-1``; live: (B,T)
     bool, False for padded span slots, whose writes go to trash page 0.
     The span's k/v are written first, then query t attends causally
-    through position pos + t."""
+    through position pos + t. ``mrope_positions`` (3,B,T): explicit
+    multimodal rope rows (None: broadcast from the absolute positions)."""
     dtype = ctx.compute_dtype
     b, t, _ = x.shape
     page_size = pages["k"].shape[1]
@@ -418,7 +420,7 @@ def sublayer_decode_span_paged(p, x: Tensor, pages: Dict[str, Tensor],
     q, k, v = _project_qkv(p["core"], h, cfg, dtype)
     posn = pos[:, None] + torch.arange(t, device=x.device,
                                        dtype=pos.dtype)[None, :]
-    q, k = apply_positional(q, k, cfg, posn)
+    q, k = apply_positional(q, k, cfg, posn, mrope_positions)
     bidx = torch.arange(b, device=x.device)[:, None]
     pid = torch.where(live, _table_lookup(page_table, bidx, posn, page_size),
                       0)
@@ -436,11 +438,11 @@ def sublayer_decode_span_paged(p, x: Tensor, pages: Dict[str, Tensor],
 
 
 def block_decode_span_paged(block_params, x, pages, page_table, pos, live,
-                            cfg, ctx):
+                            cfg, ctx, mrope_positions=None):
     for i in range(cfg.block_len):
         x, _ = sublayer_decode_span_paged(
             block_params[f"sl{i}"], x, pages[f"sl{i}"], page_table, pos,
-            live, cfg, ctx, i)
+            live, cfg, ctx, i, mrope_positions)
     return x, pages
 
 
@@ -521,7 +523,8 @@ def _state_core(p, h: Tensor, cache: Dict[str, Tensor], cfg: ModelConfig,
 
 def sublayer_prefill(p, x: Tensor, cache: Dict[str, Tensor],
                      cfg: ModelConfig, ctx: ModelContext, idx: int,
-                     seq_mask: Optional[Tensor] = None
+                     seq_mask: Optional[Tensor] = None,
+                     mrope_positions: Optional[Tensor] = None
                      ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Full-sequence forward that fills the cache. x: (B,S,D); ``cache``
     holds zeros of the spec's shape and is filled in place. With S past
@@ -533,7 +536,8 @@ def sublayer_prefill(p, x: Tensor, cache: Dict[str, Tensor],
     embeddings the residual stream is exactly 0 through the pad prefix
     (every projection is bias-free and every core output is gated by a
     zero), so masking the one biased intermediate, Mamba's conv, keeps
-    the recurrent state untouched until the first live token."""
+    the recurrent state untouched until the first live token.
+    ``mrope_positions`` (3,B,S): explicit multimodal rope rows."""
     kind = cfg.sublayer_kinds()[idx]
     if kind != "attn":
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -549,7 +553,7 @@ def sublayer_prefill(p, x: Tensor, cache: Dict[str, Tensor],
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _project_qkv(p["core"], h, cfg, dtype)
     positions = torch.arange(s, device=x.device).expand(b, s)
-    q, k = apply_positional(q, k, cfg, positions)
+    q, k = apply_positional(q, k, cfg, positions, mrope_positions)
     out = full_attention(q, k, v, cfg, q_chunk=ctx.q_chunk,
                          impl=ctx.attn_impl)
     w = cache["k"].shape[1]
@@ -597,7 +601,8 @@ def sublayer_decode(p, x: Tensor, cache: Dict[str, Tensor], pos: Tensor,
 
 def sublayer_decode_span(p, x: Tensor, cache: Dict[str, Tensor],
                          pos: Tensor, live: Tensor, cfg: ModelConfig,
-                         ctx: ModelContext, idx: int
+                         ctx: ModelContext, idx: int,
+                         mrope_positions: Optional[Tensor] = None
                          ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """T-token span decode against dense per-slot caches.
 
@@ -607,7 +612,8 @@ def sublayer_decode_span(p, x: Tensor, cache: Dict[str, Tensor],
     of dead (or out-of-range) positions are dropped. Every sublayer output
     is re-masked, so the residual stream stays exactly 0 at dead
     positions: a Mamba or RWKV state threads through the span from the
-    cache, untouched by a dead prefix."""
+    cache, untouched by a dead prefix. ``mrope_positions`` (3,B,T):
+    explicit multimodal rope rows for the span."""
     dtype = ctx.compute_dtype
     if cfg.sublayer_kinds()[idx] != "attn":
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -619,7 +625,7 @@ def sublayer_decode_span(p, x: Tensor, cache: Dict[str, Tensor],
     q, k, v = _project_qkv(p["core"], h, cfg, dtype)
     posn = pos[:, None] + torch.arange(t, device=x.device,
                                        dtype=pos.dtype)[None, :]
-    q, k = apply_positional(q, k, cfg, posn)
+    q, k = apply_positional(q, k, cfg, posn, mrope_positions)
     w = cache["k"].shape[1]
     bi, ti = torch.nonzero(live & (posn >= 0) & (posn < w), as_tuple=True)
     slot = posn[bi, ti].long()
@@ -630,10 +636,11 @@ def sublayer_decode_span(p, x: Tensor, cache: Dict[str, Tensor],
     return _attn_out_mlp(p, x, out, cfg, ctx, idx, live), cache
 
 
-def block_prefill(block_params, x, cache, cfg, ctx, seq_mask=None):
+def block_prefill(block_params, x, cache, cfg, ctx, seq_mask=None,
+                  mrope_positions=None):
     for i in range(cfg.block_len):
         x, _ = sublayer_prefill(block_params[f"sl{i}"], x, cache[f"sl{i}"],
-                                cfg, ctx, i, seq_mask)
+                                cfg, ctx, i, seq_mask, mrope_positions)
     return x, cache
 
 
@@ -644,8 +651,10 @@ def block_decode(block_params, x, cache, pos, cfg, ctx):
     return x, cache
 
 
-def block_decode_span(block_params, x, cache, pos, live, cfg, ctx):
+def block_decode_span(block_params, x, cache, pos, live, cfg, ctx,
+                      mrope_positions=None):
     for i in range(cfg.block_len):
         x, _ = sublayer_decode_span(block_params[f"sl{i}"], x,
-                                    cache[f"sl{i}"], pos, live, cfg, ctx, i)
+                                    cache[f"sl{i}"], pos, live, cfg, ctx, i,
+                                    mrope_positions)
     return x, cache

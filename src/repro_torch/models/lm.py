@@ -81,7 +81,9 @@ def lm_loss(params: Dict[str, Any], batch: Dict[str, Tensor],
     (loss, metrics) with metrics xent, tokens, load_balance, router_z,
     loss."""
     if batch.get("positions") is not None:
-        raise NotImplementedError("mrope position rows are not ported yet")
+        raise NotImplementedError(
+            "training with mrope position rows is not ported yet (ROADMAP "
+            "Queue A, encoder-decoder and M-RoPE training)")
     x = embed_lookup(params["embed"], batch["tokens"], ctx.compute_dtype)
     auxs: Dict[str, List[Tensor]] = {k: [] for k in AUX_WEIGHTS}
     for bp in _unstack(params["blocks"], cfg.n_blocks):
@@ -129,7 +131,8 @@ def lm_cache_spec(cfg: ModelConfig, batch: int, window: int,
 def lm_prefill(params: Dict[str, Any], tokens: Tensor, cfg: ModelConfig,
                ctx: ModelContext, window: int,
                logits_at: Optional[Tensor] = None,
-               pad_left: Optional[Tensor] = None
+               pad_left: Optional[Tensor] = None,
+               mrope_positions: Optional[Tensor] = None
                ) -> Tuple[Tensor, Dict[str, Any]]:
     """Full-sequence prefill into fresh dense caches. Returns (logits
     (B,1,V) of the last position, or of ``logits_at`` (B,), and the cache
@@ -139,7 +142,9 @@ def lm_prefill(params: Dict[str, Any], tokens: Tensor, cfg: ModelConfig,
     for state-family (Mamba/RWKV) stacks: their embeddings are zeroed and
     the recurrent state stays exactly at zero through the pad prefix, so a
     server can pad prompts from the front to a bucketed length. Attention
-    sublayers refuse it (front padding would shift their positions)."""
+    sublayers refuse it (front padding would shift their positions).
+    ``mrope_positions`` (3,B,S): explicit multimodal rope rows (None:
+    text rows, broadcast from the absolute positions)."""
     b, s = tokens.shape
     x = embed_lookup(params["embed"], tokens, ctx.compute_dtype)
     live = None
@@ -152,7 +157,7 @@ def lm_prefill(params: Dict[str, Any], tokens: Tensor, cfg: ModelConfig,
     for layer in range(cfg.n_blocks):
         x, _ = block_prefill(tree_index(params["blocks"], layer), x,
                              tree_index(caches, layer), cfg, ctx,
-                             seq_mask=live)
+                             seq_mask=live, mrope_positions=mrope_positions)
     if logits_at is None:
         x = x[:, -1:]
         pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
@@ -181,15 +186,17 @@ def lm_decode_step(params: Dict[str, Any], token: Tensor,
 
 def lm_decode_span(params: Dict[str, Any], tokens: Tensor,
                    cache: Dict[str, Any], cfg: ModelConfig,
-                   ctx: ModelContext, logits_at: Optional[Tensor] = None
+                   ctx: ModelContext, logits_at: Optional[Tensor] = None,
+                   mrope_positions: Optional[Tensor] = None
                    ) -> Tuple[Tensor, Dict[str, Any]]:
     """T-token span decode against dense caches that hold absolute slots
     (the chunked-prefill datapath of the dense backend). tokens (B,T) at
     positions ``pos .. pos+T-1``; ``pos`` may be negative: positions < 0
     are the dead front padding of a right-aligned first chunk (embeddings
     zeroed, writes dropped, residual stream exactly 0 there).
-    ``logits_at`` (B,) returns only that position's logits. ``pos`` in the
-    returned cache is unchanged."""
+    ``logits_at`` (B,) returns only that position's logits;
+    ``mrope_positions`` (3,B,T) are explicit multimodal rope rows for the
+    span. ``pos`` in the returned cache is unchanged."""
     pos = cache["pos"]
     b, t = tokens.shape
     posn = pos[:, None] + torch.arange(t, device=tokens.device,
@@ -200,7 +207,7 @@ def lm_decode_span(params: Dict[str, Any], tokens: Tensor,
     for layer in range(cfg.n_blocks):
         x, _ = block_decode_span(tree_index(params["blocks"], layer), x,
                                  tree_index(cache["blocks"], layer), pos,
-                                 live, cfg, ctx)
+                                 live, cfg, ctx, mrope_positions)
     x = _span_logits_slice(x, logits_at)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, x, cfg, ctx), {"blocks": cache["blocks"],
@@ -239,14 +246,16 @@ def lm_decode_step_paged(params: Dict[str, Any], token: Tensor,
 def lm_decode_span_paged(params: Dict[str, Any], tokens: Tensor,
                          state: Dict[str, Any], cfg: ModelConfig,
                          ctx: ModelContext, valid: Optional[Tensor] = None,
-                         logits_at: Optional[Tensor] = None
+                         logits_at: Optional[Tensor] = None,
+                         mrope_positions: Optional[Tensor] = None
                          ) -> Tuple[Tensor, Dict[str, Any]]:
     """T-token span decode (speculative verify / suffix prefill / chunked
     cold prefill). tokens (B,T) at positions ``pos .. pos+T-1``; ``valid``
     (B,) real tokens per row (default T), padded tail slots write to the
-    trash page; ``logits_at`` (B,) returns only that position's logits.
-    ``pos`` in the returned state is unchanged: acceptance and rollback
-    are the caller's."""
+    trash page; ``logits_at`` (B,) returns only that position's logits;
+    ``mrope_positions`` (3,B,T) are explicit multimodal rope rows for the
+    span. ``pos`` in the returned state is unchanged: acceptance and
+    rollback are the caller's."""
     pos, table = state["pos"], state["page_table"]
     b, t = tokens.shape
     if valid is None:
@@ -256,7 +265,8 @@ def lm_decode_span_paged(params: Dict[str, Any], tokens: Tensor,
     for layer in range(cfg.n_blocks):
         x, _ = block_decode_span_paged(
             tree_index(params["blocks"], layer), x,
-            tree_index(state["pages"], layer), table, pos, live, cfg, ctx)
+            tree_index(state["pages"], layer), table, pos, live, cfg, ctx,
+            mrope_positions)
     x = _span_logits_slice(x, logits_at)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _logits(params, x, cfg, ctx)

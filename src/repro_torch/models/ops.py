@@ -1,6 +1,6 @@
 """Elementary model ops (``repro.models.ops``): norms, activations,
-embeddings, RoPE and the training loss. Norms compute in fp32 and return
-the caller's dtype, as the reference does."""
+embeddings, RoPE, M-RoPE and the training loss. Norms compute in fp32 and
+return the caller's dtype, as the reference does."""
 
 from __future__ import annotations
 
@@ -15,6 +15,15 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
 
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
@@ -53,6 +62,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     half = x.shape[-1] // 2
     freqs = rope_freqs(x.shape[-1], theta, x.device)
     angles = positions[..., :, None, None].float() * freqs
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, ...]) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): the rotary half-dim splits into
+    sections (temporal, height, width), each rotated by its own position
+    stream. x: (..., S, H, D); positions: (3, ..., S). Where the three
+    streams coincide (text) it is RoPE."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {sections} != half dim {half}")
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    sel = torch.tensor([i for i, s in enumerate(sections) for _ in range(s)],
+                       device=x.device)
+    pos = torch.movedim(positions, 0, -1).float()  # (..., S, 3)
+    angles = pos[..., sel][..., None, :] * freqs  # (..., S, 1, half)
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

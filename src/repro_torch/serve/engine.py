@@ -10,14 +10,20 @@ The single-host paths of the reference, in eager PyTorch:
     the final partial chunk bucketed to a power of two) through the same
     span datapath that verifies speculative drafts.
   * **Dense KV backend** (``paged=False``; the only one for Mamba and
-    RWKV stacks): per-slot ring caches and recurrent states
-    (kv_cache.DenseKVCache). A prompt prefills in right-aligned spans at
-    absolute positions (``chunk_prefill``; hybrid stacks thread their
-    recurrent state through the spans), front-padded to a power-of-two
-    bucket in one call (``bucket_prefill``, pure state-family stacks), or,
-    when a sliding window makes the cache a ring narrower than the serve
-    window, in one full-prompt prefill; its cache row is then copied into
-    the slot.
+    RWKV stacks and for encoder-decoders): per-slot ring caches and
+    recurrent states (kv_cache.DenseKVCache). A prompt prefills in
+    right-aligned spans at absolute positions (``chunk_prefill``; hybrid
+    stacks thread their recurrent state through the spans), front-padded
+    to a power-of-two bucket in one call (``bucket_prefill``, pure
+    state-family stacks), or, when a sliding window makes the cache a ring
+    narrower than the serve window or the model is an encoder-decoder
+    (whose request brings its ``enc_feats``), in one full-prompt prefill;
+    its cache row is then copied into the slot.
+  * **Request extras**: ``enc_feats`` (1, encoder_seq, d_model) frames of
+    an encoder-decoder request, and ``positions`` (3, 1, S) explicit
+    M-RoPE rows, sliced per prefill chunk and continued past the prompt
+    by max + 1. A request with explicit positions never publishes or
+    adopts prefix pages: the index is keyed on tokens alone.
   * **Prefix caching**: full prompt pages are content-addressed; an
     admission that hits shares the cached pages (copy-on-write protected)
     and prefills only the prompt suffix.
@@ -185,15 +191,18 @@ class ServeEngine:
         # recurrent state stays zero through the pad prefix), which bounds
         # the reference's compile count to log2(window).
         self.bucket_prefill = (not self.paged
+                               and not cfg.is_encoder_decoder
                                and set(cfg.sublayer_kinds()) <=
                                {"mamba", "rwkv"})
         # Chunked prefill through the dense span path: prompts are
         # right-aligned into fixed-size spans at absolute positions, so
         # attention needs no front padding. It needs append-only caches,
         # so sliding-window archs whose window is below the serve window
-        # (a ring) take the full-prompt prefill instead.
+        # (a ring) take the full-prompt prefill instead, as do
+        # encoder-decoders. mrope rows thread through the span paths.
         self.chunk_prefill = (not self.paged
                               and not self.bucket_prefill
+                              and not cfg.is_encoder_decoder
                               and (cfg.sliding_window is None
                                    or self.window <= cfg.sliding_window))
         if self.retry_budget < 0:
@@ -210,8 +219,9 @@ class ServeEngine:
             # at the next boundary, before any chunk could read it
             self.kv.integrity_checks = True
         self.span_len = max(1, min(self.prefill_chunk, self.window))
-        # span shapes run so far, paged and dense: the reference compiles
-        # one program per shape, so their counts are its
+        # span shapes run so far, paged and dense, each with or without
+        # mrope rows: the reference compiles one program per shape and
+        # argument structure, so their counts are its
         # span_prefill_compiles and span_prefill_dense_compiles metrics
         self._span_shapes: set = set()
         self._dense_span_shapes: set = set()
@@ -273,10 +283,12 @@ class ServeEngine:
         return pages
 
     def _prefill_span(self, params, span: Tensor, table: Tensor,
-                      pos0: Tensor, valid: Tensor, temp: float) -> Tensor:
+                      pos0: Tensor, valid: Tensor, temp: float,
+                      mrope: Optional[Tensor] = None) -> Tensor:
         """One span-prefill call: the span's k/v land in the pages and
-        only the last real token's logits are computed."""
-        shape = tuple(span.shape)
+        only the last real token's logits are computed. ``mrope``
+        (3, 1, T): the span's explicit rope rows."""
+        shape = (tuple(span.shape), mrope is not None)
         if shape not in self._span_shapes:
             self._span_shapes.add(shape)
             self.metrics.compile_event("serve_span_prefill")
@@ -284,14 +296,14 @@ class ServeEngine:
         idx = torch.clamp(valid - 1, 0, span.shape[1] - 1)
         logits, _ = api.decode_span_paged_fn(
             params, span, state, self.cfg, self.ctx, valid=valid,
-            logits_at=idx)
+            logits_at=idx, mrope_positions=mrope)
         return self._pick(logits, temp)
 
-    def _prefill_dense(self, params, tokens: Tensor, temp: float):
-        """Full-prompt prefill of one request into a fresh (1, W) cache
-        row; returns (first token, cache)."""
-        logits, cache = api.prefill_fn(params, {"tokens": tokens}, self.cfg,
-                                       self.ctx, window=self.window)
+    def _prefill_dense(self, params, batch: Dict[str, Tensor], temp: float):
+        """Full-prompt prefill of one request (its tokens and extras) into
+        a fresh (1, W) cache row; returns (first token, cache)."""
+        logits, cache = api.prefill_fn(params, batch, self.cfg, self.ctx,
+                                       window=self.window)
         return self._pick(logits, temp), cache
 
     def _prefill_bucketed(self, params, tokens: Tensor, pad_left: Tensor,
@@ -304,10 +316,10 @@ class ServeEngine:
         return self._pick(logits, temp), cache
 
     def _prefill_span_dense(self, params, cache, span: Tensor, pos0: Tensor,
-                            temp: float):
+                            temp: float, mrope: Optional[Tensor] = None):
         """One dense span-prefill call: a right-aligned chunk ends on a
         live token, whose logits alone go through the lm head."""
-        shape = tuple(span.shape)
+        shape = (tuple(span.shape), mrope is not None)
         if shape not in self._dense_span_shapes:
             self._dense_span_shapes.add(shape)
             self.metrics.compile_event("serve_span_prefill_dense")
@@ -316,7 +328,8 @@ class ServeEngine:
         last = torch.full((span.shape[0],), span.shape[1] - 1,
                           dtype=torch.int32, device=span.device)
         logits, new_state = api.decode_span_fn(
-            params, span, state, self.cfg, self.ctx, logits_at=last)
+            params, span, state, self.cfg, self.ctx, logits_at=last,
+            mrope_positions=mrope)
         return self._pick(logits, temp), {"blocks": new_state["blocks"]}
 
     def _decode_step(self, params, table: Optional[Tensor], temp: float,
@@ -439,11 +452,14 @@ class ServeEngine:
         return min(cap, max(4, 1 << (t - 1).bit_length()))
 
     def _span_prefill_paged(self, params, slot: int, tokens: np.ndarray,
-                            start: int, temp: float) -> Tensor:
+                            start: int, temp: float,
+                            mrope: Optional[np.ndarray] = None) -> Tensor:
         """Prefill ``tokens`` at absolute positions ``start..`` in fixed-
         size span chunks; cold prompts (start=0) and cached-prefix
         suffixes (start=cached) share the path. Back padding inside a
-        partial chunk writes to the trash page."""
+        partial chunk writes to the trash page. ``mrope`` (3, S_total):
+        the request's explicit rope rows by absolute position; each chunk
+        slices its window (pad slots get zero rows)."""
         s_len = self.span_len
         if not self.kv.ensure_private(slot, start, self._copy_page):
             raise RuntimeError("page pool exhausted during CoW fork")
@@ -456,21 +472,28 @@ class ServeEngine:
             b_len = self._pow2_bucket(t, s_len)
             span = np.zeros((1, b_len), np.int32)
             span[0, :t] = tokens[i:i + t]
+            chunk_m = None
+            if mrope is not None:
+                cm = np.zeros((3, 1, b_len), np.int32)
+                cm[:, 0, :t] = mrope[:, start + i:start + i + t]
+                chunk_m = torch.from_numpy(cm).to(dev)
             first = self._prefill_span(
                 params, torch.from_numpy(span).to(dev), table,
                 torch.full((1,), start + i, dtype=i32, device=dev),
-                torch.full((1,), t, dtype=i32, device=dev), temp)
+                torch.full((1,), t, dtype=i32, device=dev), temp, chunk_m)
             self.counters["prefill_span_calls"] += 1
             i += t
         return first
 
     def _span_prefill_dense(self, params, slot: int, tokens: np.ndarray,
-                            temp: float) -> Tensor:
+                            temp: float,
+                            mrope: Optional[np.ndarray] = None) -> Tensor:
         """Chunked prefill on the dense backend: the prompt is RIGHT-
         aligned into fixed-size spans, so only the first chunk is
         front-padded; its dead positions sit at negative absolute
         positions. The first (partial) chunk buckets to a power of two;
-        every other chunk is a full span."""
+        every other chunk is a full span. ``mrope`` (3, S): explicit rope
+        rows; the dead front pad gets zero rows (its writes drop)."""
         s_len = self.span_len
         s = len(tokens)
         r = s % s_len or min(s, s_len)  # first (partial) chunk tokens
@@ -478,6 +501,10 @@ class ServeEngine:
         pad = b0 - r
         padded = np.zeros((1, pad + s), np.int32)
         padded[0, pad:] = tokens
+        m_full = None
+        if mrope is not None:
+            m_full = np.zeros((3, pad + s), np.int32)
+            m_full[:, pad:] = mrope[:, :s]
         dev, i32 = self.device, torch.int32
         spec = api.cache_spec(self.cfg, 1, self.window, self.ctx)
         cache = {"blocks": init_cache(spec["blocks"], dev)}
@@ -485,35 +512,60 @@ class ServeEngine:
         i = 0
         while i < padded.shape[1]:
             b_len = b0 if i == 0 else s_len
+            chunk_m = (None if m_full is None else torch.from_numpy(
+                np.ascontiguousarray(m_full[:, None, i:i + b_len])).to(dev))
             first, cache = self._prefill_span_dense(
                 params, cache,
                 torch.from_numpy(padded[:, i:i + b_len]).to(dev),
-                torch.full((1,), i - pad, dtype=i32, device=dev), temp)
+                torch.full((1,), i - pad, dtype=i32, device=dev), temp,
+                chunk_m)
             self.counters["prefill_span_calls"] += 1
             i += b_len
         self.kv.write_prefill(slot, cache)
         return first
+
+    def _req_mrope(self, req: Request, s: int) -> Optional[np.ndarray]:
+        """(3, S) absolute-indexed mrope rows for a resume prompt of
+        length ``s``: the request's explicit positions, extended past the
+        original prompt (generated tokens folded in on resume) by the
+        standard max + 1 text continuation. None for text requests."""
+        if self.cfg.pos_emb != "mrope":
+            return None
+        v = req.extras.get("positions")
+        if v is None:
+            return None  # text default: span paths broadcast positions
+        m = np.asarray(v, np.int32).reshape(3, -1)
+        if m.shape[1] < s:
+            tail = int(m.max()) + 1 + np.arange(s - m.shape[1],
+                                                dtype=np.int32)
+            m = np.concatenate(
+                [m, np.broadcast_to(tail, (3, tail.size))], axis=1)
+        return m[:, :s]
 
     def _admit_into_slot(self, params, req: Request, slot: int,
                          temp: float) -> None:
         rp = req.resume_prompt()
         s = len(rp)
         self.counters["prefills"] += 1
+        mrope = self._req_mrope(req, s)
         if self.paged:
             cached = req.cached_prefix_len
             # every paged prefill is a chunked span prefill; a prefix hit
             # just starts past the adopted pages (suffix-only compute)
             first = self._span_prefill_paged(params, slot, rp[cached:],
-                                             cached, temp)
+                                             cached, temp, mrope)
             if cached > 0:
                 self.counters["suffix_prefills"] += 1
-            if self.prefix_cache:
+            if self.prefix_cache and mrope is None:
                 # publish the full prompt pages for later admissions (and
-                # this request's own resume after a preemption)
+                # this request's own resume after a preemption). Explicit
+                # mrope requests never publish (or adopt): the index is
+                # keyed on tokens alone, and the same tokens under other
+                # position rows hold other KV.
                 self.kv.register_prefix(slot, rp)
-        elif self.chunk_prefill:
-            first = self._span_prefill_dense(params, slot, rp, temp)
-        elif self.bucket_prefill:
+        elif self.chunk_prefill and not (req.extras.keys() - {"positions"}):
+            first = self._span_prefill_dense(params, slot, rp, temp, mrope)
+        elif self.bucket_prefill and not req.extras:
             sb = 1 << max(3, (s - 1).bit_length())  # pow2 >= s, floor 8
             self.prefill_bucket_sizes.add(sb)
             padded = np.zeros((1, sb), np.int32)
@@ -524,8 +576,10 @@ class ServeEngine:
                            device=self.device), temp)
             self.kv.write_prefill(slot, cache)
         else:
-            first, cache = self._prefill_dense(
-                params, torch.from_numpy(rp[None, :]).to(self.device), temp)
+            batch = {"tokens": torch.from_numpy(rp[None, :]).to(self.device)}
+            for k, v in req.extras.items():
+                batch[k] = torch.as_tensor(np.asarray(v)).to(self.device)
+            first, cache = self._prefill_dense(params, batch, temp)
             self.kv.write_prefill(slot, cache)
         if self.draft_k and self._use_spec:
             row = np.zeros(self.window + self.draft_k + 1, np.int32)
@@ -673,13 +727,16 @@ class ServeEngine:
             slot = slots[0]
             if self.paged:
                 rp = req.resume_prompt()
-                cached, pids = ((0, []) if not self.prefix_cache
+                # explicit-mrope requests bypass the token-keyed prefix
+                # index (same tokens, other position rows => other KV)
+                use_pc = self.prefix_cache and "positions" not in req.extras
+                cached, pids = ((0, []) if not use_pc
                                 else self.kv.lookup_prefix(rp))
                 if cached:
                     self.kv.adopt_prefix(slot, pids)
                 need = len(rp) + self.chunk * per_step + 1
                 if not self.kv.grow(slot, min(need, self.window)):
-                    if self.prefix_cache:
+                    if use_pc:
                         # undo adoption and its counters: the retry at the
                         # next boundary repeats the lookup
                         self.kv.abort_adoption(slot, cached, pids)
@@ -859,7 +916,8 @@ class ServeEngine:
                     self.tracer.end(pid=pid, tid=slot)  # req span
                     sched.complete(slot)
                     if self.paged:
-                        if self.prefix_cache:
+                        if (self.prefix_cache
+                                and "positions" not in req.extras):
                             # publish generated pages too: multi-turn
                             # prompts extending this output will hit
                             self.kv.register_prefix(
@@ -891,16 +949,19 @@ class ServeEngine:
                  temperature: float = 0.0,
                  generator: Optional[torch.Generator] = None) -> Tensor:
         """Single-batch generation served by the engine: one request per
-        row. Returns (B, max_new) int32 tokens on the CPU; rows that hit
-        EOS early are padded with the EOS id."""
-        extra = set(batch) - {"tokens"}
-        if extra:
-            raise NotImplementedError(
-                f"batch keys {sorted(extra)} are not ported yet")
+        row, whose extras are its rows of the other batch keys
+        (``enc_feats`` (B, ...); mrope ``positions`` (3, B, S), batch on
+        axis 1). Returns (B, max_new) int32 tokens on the CPU; rows that
+        hit EOS early are padded with the EOS id."""
         tokens = np.asarray(batch["tokens"])
         b = tokens.shape[0]
-        reqs = [Request(rid=i, prompt=tokens[i], max_new=max_new)
-                for i in range(b)]
+        reqs = []
+        for i in range(b):
+            req = Request(rid=i, prompt=tokens[i], max_new=max_new)
+            req.extras = {k: (np.asarray(v)[:, i:i + 1] if k == "positions"
+                              else np.asarray(v)[i:i + 1])
+                          for k, v in batch.items() if k != "tokens"}
+            reqs.append(req)
         out = self.run(params, reqs, generator=generator,
                        temperature=temperature)
         pad = self.eos_id if self.eos_id is not None else 0
@@ -920,17 +981,15 @@ class ServeEngine:
         """The reference's per-token loop: a dense prefill of the batch,
         then one decode call and one pick per token, with no scheduler.
         Kept as a cross-check oracle of ``generate``. Samples from
-        ``generator`` when it is given and the temperature is > 0.
-        Returns (B, max_new) int32 tokens on the device."""
-        extra = set(batch) - {"tokens"}
-        if extra:
-            raise NotImplementedError(
-                f"batch keys {sorted(extra)} are not ported yet")
-        tokens = torch.as_tensor(np.asarray(batch["tokens"]),
-                                 dtype=torch.int32).to(self.device)
+        ``generator`` when it is given and the temperature is > 0. The
+        batch may carry ``enc_feats`` and mrope ``positions``. Returns
+        (B, max_new) int32 tokens on the device."""
+        dev_batch = {k: torch.as_tensor(np.asarray(v)).to(self.device)
+                     for k, v in batch.items()}
+        dev_batch["tokens"] = dev_batch["tokens"].to(torch.int32)
         self._gen = generator
         temp = temperature if generator is not None else 0.0
-        logits, cache = api.prefill_fn(params, {"tokens": tokens}, self.cfg,
+        logits, cache = api.prefill_fn(params, dev_batch, self.cfg,
                                        self.ctx, self.window)
         out = []
         tok = self._pick(logits, temp)

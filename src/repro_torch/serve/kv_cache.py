@@ -16,7 +16,8 @@ torch tensors on the engine's device, updated in place.
 
 ``DenseKVCache`` is the dense backend: one (n_blocks, max_batch, W, KV, D)
 k/v cache per sublayer, a ring when a sliding window makes W smaller than
-the serve window. The reference's mesh placement is not ported.
+the serve window (an encoder-decoder's ring and cross k/v per layer). The
+reference's mesh placement is not ported.
 """
 
 from __future__ import annotations
@@ -384,8 +385,9 @@ class DenseKVCache:
                       ) -> None:
         """Copy a 1-request prefill cache into batch row ``slot``, in
         place (the reference's jitted ``write_dense``). Every leaf is
-        (n_blocks, B, ...) with the batch second: k/v, and the states
-        conv, ssm, tok, wkv and cm_tok alike."""
-        for sl, sub in self.cache["blocks"].items():
-            for name, arr in sub.items():
-                arr[:, slot] = prefill_cache["blocks"][sl][name][:, 0]
+        (n_layers, B, ...) with the batch second: k/v, the states conv,
+        ssm, tok, wkv and cm_tok, and an encoder-decoder's cross k/v
+        alike."""
+        rows = dict(tree_items(prefill_cache["blocks"]))
+        for path, arr in tree_items(self.cache["blocks"]):
+            arr[:, slot] = rows[path][:, 0]

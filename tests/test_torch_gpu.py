@@ -27,7 +27,16 @@ final state within 1e-5 of each case's largest |value| (summation order,
 and the cumulative decay's rounding carried by exp(+-cum)); the kernel
 without the current-token bonus fails that limit; a zero front pad keeps
 the state exactly 0; the state families' greedy tokens through the
-kernels equal the plain route's (f32)."""
+kernels equal the plain route's (f32). The embedding-bag kernel: f32
+within 1e-5 of the case's largest |value| (an fmaf against the plain
+version's product and sum), bf16 within one bf16 step of each row's
+largest |value|; a bag of one index with weight 1 is the row exactly; the
+kernel without the bag's last position fails the limit; the DLRM
+example's losses through the kernel match the plain route's within rel
+1e-5. The flash kernel with S_k != S_q (Whisper's cross-attention) holds
+the flash limits, and told S_k - 1 keys it fails them; Whisper and
+Qwen2-VL (explicit M-RoPE rows) serve the same greedy tokens through the
+kernels as through the plain route (f32)."""
 
 import numpy as np
 import pytest
@@ -40,7 +49,9 @@ from repro_torch.core.sdc import FaultModel, faulty_wrap
 from repro_torch.kernels import decode_attention as kern
 from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import matmul as mm
+from repro_torch.examples import dlrm_sparsecore as dlrm
 from repro_torch.kernels import moe_gemm, ref, rwkv_scan
+from repro_torch.kernels import sparse_gather as sg
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch.train import make_optimizer
 from repro_torch.models import api
@@ -747,3 +758,200 @@ def test_state_engine_cuda_matches_ref(cuda, arch):
     for i in range(len(prompts)):
         np.testing.assert_array_equal(outs[0][i], outs[1][i])
     assert torch.equal(pert[0], pert[1])
+
+
+# ------------------------------------------------------------ embedding bag
+
+GATHER_CASES = {  # V, D, N, bag
+    "dlrm_user": (5000, 32, 256, 4),
+    "dlrm_cat": (200, 16, 256, 4),
+    "jax_512x128": (512, 128, 8, 8),
+    "ragged_d37": (1000, 37, 64, 5),
+    "long_bag": (4096, 128, 300, 100),
+}
+
+
+def _gather_inputs(dev, v, d, n, bag, dtype, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    table = torch.randn((v, d), generator=g).to(dtype).to(dev)
+    idx = torch.randint(0, v, (n, bag), generator=g,
+                        dtype=torch.int32).to(dev)
+    w = torch.randn((n, bag), generator=g).to(dev)
+    return table, idx, w
+
+
+def _gather_reading(got, want, dtype):
+    if dtype == torch.bfloat16:  # bf16 steps of each row's largest |want|
+        err = (got.float() - want.float()).abs()
+        top = want.float().abs().amax(-1, keepdim=True).clamp_min(1e-30)
+        return float((err / torch.exp2(torch.floor(torch.log2(top)) - 7))
+                     .max())
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(GATHER_CASES))
+def test_sparse_gather_kernel_matches_plain(cuda, dtype, case):
+    v, d, n, bag = GATHER_CASES[case]
+    table, idx, w = _gather_inputs(cuda, v, d, n, bag, dtype)
+    idx[:, -1] = idx[:, 0]  # a repeated row in every bag
+    idx[0, 1], idx[1, 1], idx[2, 1] = -1, v + 2, -v - 4  # wrap, clamp
+    before = sg.launches["sparse_gather_sum"]
+    got = sg.sparse_gather_sum(table, idx, w)
+    want = sg.sparse_gather_sum_plain(table, idx, w)
+    torch.cuda.synchronize()
+    assert sg.launches["sparse_gather_sum"] == before + 1
+    assert got.dtype == dtype and got.shape == (n, d)
+    limit = 1.0 if dtype == torch.bfloat16 else 1e-5
+    assert _gather_reading(got, want, dtype) <= limit
+    bad = sg.sparse_gather_sum(table, idx, w, skip_last=True)
+    assert _gather_reading(bad, want, dtype) > limit
+    assert torch.equal(got, sg.sparse_gather_sum(table, idx, w))
+
+
+def test_sparse_gather_bag_of_one_is_the_row(cuda):
+    for dtype in (torch.float32, torch.bfloat16):
+        table, _, _ = _gather_inputs(cuda, 127, 48, 1, 1, dtype)
+        idx = torch.arange(127, device=cuda,
+                           dtype=torch.int32)[:, None].contiguous()
+        w = torch.ones((127, 1), device=cuda)
+        assert torch.equal(sg.sparse_gather_sum(table, idx, w), table)
+
+
+def test_sparse_gather_bf16_at_dlrm_width(cuda):
+    """bf16 rows 128 wide and bags of 100, as MLPerf's DLRM-DCNv2, on a
+    1M-row table that fits a test."""
+    table, idx, w = _gather_inputs(cuda, 1_000_000, 128, 2048, 100,
+                                   torch.bfloat16, seed=3)
+    got = sg.sparse_gather_sum(table, idx, w)
+    want = sg.sparse_gather_sum_plain(table, idx, w)
+    assert _gather_reading(got, want, torch.bfloat16) <= 1.0
+
+
+def test_sparse_gather_wrapper_rejects_bad_inputs(cuda):
+    table, idx, w = _gather_inputs(cuda, 64, 16, 8, 4, torch.float32)
+    with pytest.raises(ValueError, match="int32"):
+        sg.sparse_gather_sum(table, idx.long(), w)
+    with pytest.raises(ValueError, match="float32"):
+        sg.sparse_gather_sum(table, idx, w.double())
+    with pytest.raises(ValueError, match="dtype"):
+        sg.sparse_gather_sum(table.half(), idx, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        sg.sparse_gather_sum(table.t().contiguous().t(), idx, w)
+    with pytest.raises(ValueError):
+        sg.sparse_gather_sum(table, idx.cpu(), w)
+
+
+def test_dlrm_example_kernel_route_matches_plain_route(cuda):
+    steps = 6
+    losses, final = {}, {}
+    for impl in ("cuda", "ref"):
+        sg.reset_launches()
+        params = dlrm.init(torch.Generator().manual_seed(0), cuda)
+        final[impl], losses[impl] = dlrm.train(params, steps, impl=impl,
+                                               device=cuda)
+        assert sg.launches["sparse_gather_sum"] == \
+            (3 * steps if impl == "cuda" else 0)
+    for a, b in zip(losses["cuda"], losses["ref"]):
+        assert abs(a - b) <= 1e-5 * abs(b)
+    for k, p in final["ref"].items():
+        assert float((final["cuda"][k] - p).abs().max()) \
+            <= 1e-5 * float(p.abs().max()), k
+
+
+def test_dlrm_gradient_matches_one_hot_products(cuda):
+    """The kernel route's backward on the card: a negative index wraps
+    once, an index still out of range adds nothing to the table gradient,
+    and the weight gradient reads the clamped row; held against f64
+    one-hot products built without index_add_."""
+    v, d, n, bag = 300, 16, 64, 4
+    g = torch.Generator().manual_seed(5)
+    table = torch.randn((v, d), generator=g)
+    idx = torch.randint(0, v, (n, bag), generator=g, dtype=torch.int32)
+    idx[:, -1] = idx[:, 0]
+    idx[0, 1], idx[1, 1], idx[2, 1] = -1, v + 2, -v - 4
+    w, up = torch.randn((n, bag), generator=g), torch.randn((n, d),
+                                                           generator=g)
+    leaves = [t.to(cuda).requires_grad_() for t in (table, w)]
+    out = dlrm._EmbeddingBag.apply(leaves[0], idx.to(cuda), leaves[1],
+                                   "cuda")
+    got_t, got_w = (x.cpu().double()
+                    for x in torch.autograd.grad(out, leaves, up.to(cuda)))
+    flat = idx.long().flatten()
+    wrapped = torch.where(flat < 0, flat + v, flat)
+    keep = (wrapped >= 0) & (wrapped < v)
+    rows = torch.arange(n * bag)
+    drop = torch.zeros((n * bag, v), dtype=torch.float64)
+    drop[rows[keep], wrapped[keep]] = 1
+    clamp = torch.zeros((n * bag, v), dtype=torch.float64)
+    clamp[rows, wrapped.clamp(0, v - 1)] = 1
+    g_rows = up.double().repeat_interleave(bag, 0)
+    want_t = drop.T @ (w.double().flatten()[:, None] * g_rows)
+    want_w = ((clamp @ table.double()) * g_rows).sum(-1).view(n, bag)
+    assert float((got_t - want_t).abs().max()) \
+        <= 1e-5 * float(want_t.abs().max())
+    assert float((got_w - want_w).abs().max()) \
+        <= 1e-5 * float(want_w.abs().max())
+
+
+# ------------------------------------------------ cross-attention, enc-dec
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk", [(64, 1500), (448, 1500), (5, 77)])
+def test_flash_kernel_with_another_key_length(cuda, dtype, sq, sk):
+    g = torch.Generator(device="cpu").manual_seed(sq + sk)
+    q = torch.randn((12, sq, 64), generator=g).to(dtype).to(cuda)
+    k, v = (torch.randn((12, sk, 64), generator=g).to(dtype).to(cuda)
+            for _ in range(2))
+    got = flash.flash_attention(q, k, v, causal=False)
+    want = flash.flash_attention_plain(q, k, v, causal=False)
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+    if dtype == torch.bfloat16:
+        assert _row_steps(got, want) <= FLASH_ROW_C
+    bad = flash.flash_attention(q, k, v, causal=False, drop_last_key=True)
+    err = float((bad.float() - want.float()).abs().max())
+    assert err > tol or (dtype == torch.bfloat16
+                         and _row_steps(bad, want) > FLASH_ROW_C)
+    with pytest.raises(ValueError, match="one sequence"):
+        flash.flash_attention(q, k, v, causal=True)
+
+
+def test_encdec_and_mrope_engines_cuda_match_ref(cuda):
+    """Whisper smoke (enc_feats) on the dense backend and Qwen2-VL smoke
+    (half the requests with explicit M-RoPE rows) on the paged backend:
+    greedy tokens through the kernels equal the plain route's (f32)."""
+    rng = np.random.default_rng(2)
+    for arch in ("whisper_small", "qwen2_vl_7b"):
+        cfg = get_smoke(arch)
+        params = init_params(api.model_specs(cfg), seed=0, device=cuda)
+        prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(3, 20)))
+                   for _ in range(4)]
+        outs = []
+        for impl in ("cuda", "ref"):
+            ctx = ModelContext(compute_dtype=torch.float32, attn_impl=impl,
+                               device=cuda)
+            eng = ServeEngine(cfg, ctx, window=40, max_batch=2, chunk=4,
+                              page_size=4, prefill_chunk=8)
+            reqs = []
+            for i, p in enumerate(prompts):
+                r = Request(rid=i, prompt=p, max_new=9)
+                if cfg.is_encoder_decoder:
+                    r.extras["enc_feats"] = np.random.default_rng(i).normal(
+                        size=(1, cfg.encoder_seq, cfg.d_model)).astype(
+                            np.float32) * 0.1
+                elif i % 2:
+                    t = np.arange(len(p))
+                    r.extras["positions"] = np.stack(
+                        [t, t // 2, t % 3])[:, None, :].astype(np.int32)
+                reqs.append(r)
+            for mod in (flash, kern):
+                mod.reset_launches()
+            outs.append(eng.run(params, reqs))
+            launched = (flash.launches["flash_attention"]
+                        + sum(kern.launches.values()))
+            assert (launched > 0) == (impl == "cuda")
+        for i in range(len(prompts)):
+            np.testing.assert_array_equal(outs[0][i], outs[1][i])

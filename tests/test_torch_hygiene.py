@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.configs.registry import get_smoke
 from repro_torch.core.sdc import FBIST
+from repro_torch.examples import dlrm_sparsecore
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 from repro_torch.models import api
@@ -44,6 +45,7 @@ def test_no_file_imports_jax_or_the_reference():
 def test_every_module_imports_with_jax_and_repro_blocked():
     mods = list(_modules())
     assert "repro_torch.serve.engine" in mods
+    assert "repro_torch.examples.dlrm_sparsecore" in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -72,6 +74,8 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
         launch_serve.main(["--arch", "qwen2_0_5b", "--smoke", "--bist"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         startup_bist()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dlrm_sparsecore.main(["--steps", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FBIST().run(lambda a, b: a @ b)
     with pytest.raises(ValueError, match="CUDA"):

@@ -67,8 +67,11 @@ def test_configs_are_copies_of_the_reference():
             cfg.moe_mask()) == \
         (32, 4096, 32, 8, 128, 14336, 65536, 16, 2, 8192, 16, 8,
          ("mamba",) * 4 + ("attn",) + ("mamba",) * 3, (False, True) * 4)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        registry.get_arch("whisper_small")
+    # every architecture of the reference resolves, to the same numbers
+    for arch in registry.ARCH_IDS:
+        for mine, ref in ((registry.get_arch(arch), j_get_arch(arch)),
+                          (registry.get_smoke(arch), j_get_smoke(arch))):
+            assert dataclasses.asdict(mine) == dataclasses.asdict(ref), arch
     with pytest.raises(KeyError):
         registry.get_arch("gpt5")
 
