@@ -29,6 +29,14 @@ result line):
                window below the ring width, and phi4's serving shape; each
                also run at pos - 1 (one key dropped), a planted fault that
                must fail the limit; the paged kernels also at phi4's heads;
+               the span's bf16 and int8 cases (the bf16 route, through
+               csrc/paged_span_attention.cu) also row by row within
+               FLASH_ROW_C bf16 steps of each row's largest |value|, as the
+               flash cases are, with its windowed cases run again with the
+               window one key short and one key long (a planted fault that
+               must fail that limit), and 16-token spans at Mixtral's heads;
+               the span kernel's ptxas lines, shared memory per block and
+               blocks per SM are logged;
   4. qwen    - full-width qwen2-0.5B from seeded random weights through
                ServeEngine.run: bf16 pages, draft_k=2, an int8 pool; then a
                short f32 run (TF32 off) whose greedy tokens through the
@@ -159,7 +167,9 @@ last.
 
 Each serve or train run sets every launch counter to 0 just before it and
 reads them just after; a kernel of that path launched no time fails the
-run.
+run. On the bf16 paged serves (qwen2-0.5B, Mixtral, Qwen2-VL) the span
+launches must equal layers x span calls, every one through the span
+kernel's source.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -179,12 +189,10 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, no sparsity
 TOL = {"f32": 1e-4, "bf16": 2e-2, "int8": 2e-2}
-# bf16 flash outputs are held, besides TOL, row by row: |got - want| <=
-# FLASH_ROW_C bf16 steps (2^-8) of the row's largest |want|. Most rows
-# average hundreds of keys to |out| ~ 0.05, where TOL alone is loose; the
-# kernel run with the window off by one key must fail this limit.
-BF16_STEP = 2.0 ** -8
-FLASH_ROW_C = 4.0
+# bf16 flash and span outputs are held, besides TOL, row by row within
+# FLASH_ROW_C bf16 steps of the row's largest |want| (row_steps); both come
+# from repro_torch.kernels.ref, which the gpu tests hold too, and main()
+# binds them once the port is on the path.
 KERNELS = {
     "decode_attention": "src/repro/kernels/decode_attention.py:81",
     "matmul": "src/repro/kernels/matmul.py:42",
@@ -203,7 +211,7 @@ SOURCES = {
     "paged_decode_attention":
         "src/repro_torch/kernels/csrc/paged_attention.cu",
     "paged_decode_span_attention":
-        "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro_torch/kernels/csrc/paged_span_attention.cu",
     "grouped_matmul": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
     "rwkv_wkv": "src/repro_torch/kernels/csrc/rwkv_wkv.cu",
     "sparse_gather_sum": "src/repro_torch/kernels/csrc/sparse_gather.cu",
@@ -246,16 +254,16 @@ def timed_ms(fn, flush, iters: int = 20, warmup: int = 3) -> float:
 # ----------------------------------------------------------------- kernels
 
 
-def kernel_case(kern, name: str, pages: str, *, t: int, d: int = 64,
-                window=None, b: int = 8, h: int = 14, kv: int = 2,
-                p: int = 16, max_ctx: int = 2048, ctxs=None, seed: int = 0):
-    """One kernel variant at serving shapes: returns its report dict.
-    Row contexts are ``ctxs``, else spread from max_ctx/8 to max_ctx.
-    With a window, table entries of pages wholly behind the first query's
-    window are 0 (the null page), as the engine's trimming leaves them."""
+def paged_inputs(name: str, pages: str, *, t: int, d: int = 64,
+                 window=None, b: int = 8, h: int = 14, kv: int = 2,
+                 p: int = 16, max_ctx: int = 2048, ctxs=None, seed: int = 0):
+    """Inputs of a paged-attention kernel case on the card: a dict of q,
+    pages k and v (with scales ks, vs for int8), table, pos, qpos (the
+    queries' positions) and the shape. Row contexts are ``ctxs``, else
+    spread from max_ctx/8 to max_ctx. With a window, table entries of pages
+    wholly behind the first query's window are 0 (the null page), as the
+    engine's trimming leaves them."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import ref
     from repro_torch.models.blocks import paged_quantize
 
     dev = torch.device("cuda")
@@ -293,25 +301,69 @@ def kernel_case(kern, name: str, pages: str, *, t: int, d: int = 64,
         table[col < keep[:, None]] = 0
         trimmed = int(keep.sum())
     if name == "paged_decode_attention":
+        qpos = pos[:, None].long() - 1  # (B, 1) the query's position
+    else:
+        qpos = pos[:, None].long() + torch.arange(t, device=dev)[None, :]
+    return dict(q=q, k=k, v=v, ks=ks, vs=vs, table=table, pos=pos,
+                qpos=qpos, trimmed=trimmed, b=b, h=h, kv=kv, d=d,
+                max_ctx=max_ctx, dtype=dtype)
+
+
+def kernel_case(kern, name: str, pages: str, *, t: int, d: int = 64,
+                window=None, fault: bool = False, **shape):
+    """One kernel variant at serving shapes: returns its report dict.
+    ``shape`` as paged_inputs takes it. The span's bf16 and int8 cases are
+    also held row by row, like the flash cases; with ``fault`` the span
+    kernel also runs with the window one key short and one key long, a
+    planted fault that must fail that limit."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+
+    x = paged_inputs(name, pages, t=t, d=d, window=window, **shape)
+    q, k, v, ks, vs = x["q"], x["k"], x["v"], x["ks"], x["vs"]
+    table, pos, qpos, dtype = x["table"], x["pos"], x["qpos"], x["dtype"]
+    b, h, kv, max_ctx, trimmed = (x["b"], x["h"], x["kv"], x["max_ctx"],
+                                  x["trimmed"])
+    dev = q.device
+    if name == "paged_decode_attention":
         qk = q[:, 0]
         run = lambda: kern.paged_decode_attention(
             qk, k, v, table, pos, k_scale=ks, v_scale=vs, window=window)
         plain = lambda: kern.paged_decode_attention_plain(
             qk, k, v, table, pos, k_scale=ks, v_scale=vs, window=window)
-        qpos = pos[:, None].long() - 1  # (B, 1) the query's position
+        source = kern.SOURCE
     else:
-        run = lambda: kern.paged_decode_span_attention(
-            q, k, v, table, pos, k_scale=ks, v_scale=vs, window=window)
+        span = lambda w: kern.paged_decode_span_attention(
+            q, k, v, table, pos, k_scale=ks, v_scale=vs, window=w)
+        run = lambda: span(window)
         plain = lambda: kern.paged_decode_span_attention_plain(
             q, k, v, table, pos, k_scale=ks, v_scale=vs, window=window)
-        qpos = pos[:, None].long() + torch.arange(t, device=dev)[None, :]
+        source = kern.span_source(q.dtype, k.dtype, d)
+    before = dict(kern.span_launches)
     got, want = run(), plain()
     torch.cuda.synchronize()
+    if (name != "paged_decode_attention"
+            and kern.span_launches[source] != before[source] + 1):
+        raise AssertionError(f"{name} {pages}: the launch did not go "
+                             f"through {source}")
     err = float((got.float() - want.float()).abs().max())
-    if not bool(torch.isfinite(got.float()).all()) or err > TOL[pages]:
+    rowwise = name != "paged_decode_attention" and pages != "f32"
+    steps = row_steps(got, want) if rowwise else None
+    if (not bool(torch.isfinite(got.float()).all()) or err > TOL[pages]
+            or (rowwise and steps > FLASH_ROW_C)):
         raise AssertionError(f"{name} {pages} t={t} h={h} d={d} "
-                             f"window={window}: max_abs_err {err} > "
-                             f"{TOL[pages]}")
+                             f"window={window}: max_abs_err {err} (limit "
+                             f"{TOL[pages]}), row steps {steps} (limit "
+                             f"{FLASH_ROW_C})")
+    planted = []
+    for w in ((window - 1, window + 1) if fault else ()):
+        reading = row_steps(span(w), want)
+        planted.append(reading)
+        if reading <= FLASH_ROW_C:
+            raise AssertionError(f"{name} {pages} t={t} h={h}: window {w} "
+                                 f"instead of {window} passes the row "
+                                 f"limit ({reading})")
 
     # SDPA on the gathered view: the library's time for the same function
     kg = ref.paged_gather_dequant_ref(k, table, ks, dtype)
@@ -349,7 +401,8 @@ def kernel_case(kern, name: str, pages: str, *, t: int, d: int = 64,
     return {
         "name": name, "pages": pages, "t": t, "b": b, "h": h, "kv": kv,
         "d": d, "window": window, "max_ctx": max_ctx,
-        "trimmed_pages": trimmed, "max_abs_err": err, "ms": ms,
+        "trimmed_pages": trimmed, "source": source, "max_abs_err": err,
+        "row_steps": steps, "planted_fault": planted, "ms": ms,
         "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "flops": flops,
@@ -517,13 +570,6 @@ def matmul_case(in_dt: str, out_dt: str, m: int, k: int, n: int,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "flops": flops,
     }
-
-
-def row_steps(got, want) -> float:
-    """max |got - want| in bf16 steps of its row's largest |want|."""
-    err = (got.float() - want.float()).abs()
-    scale = want.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
-    return float((err / scale).max()) / BF16_STEP
 
 
 def flash_case(dtype: str, *, causal: bool = True, window=None, bh: int = 56,
@@ -1054,6 +1100,25 @@ def dense_decode_launches(label, engine, counts, n_layers) -> None:
                              f"{steps} decode steps")
 
 
+def span_route_launches(label, engine, counts, n_layers) -> None:
+    """A bf16 paged serve: every span call (chunked and suffix prefill
+    and, with draft_k, each verify step) launches the span kernel once per
+    layer, and every launch goes through the span kernel's source."""
+    from repro_torch.kernels import decode_attention as kern
+    calls = engine.counters["prefill_span_calls"]
+    if engine.draft_k:
+        calls += engine.counters["decode_steps"]
+    n = counts["paged_decode_span_attention"]
+    if (calls == 0 or n != n_layers * calls
+            or kern.span_launches[kern.SPAN_SOURCE] != n):
+        raise AssertionError(f"{label}: span launches {n} (through "
+                             f"{kern.span_launches}) != {n_layers} x "
+                             f"{calls} span calls, all through "
+                             f"{kern.SPAN_SOURCE}")
+    log(f"  span launches {n} = {n_layers} x {calls} span calls, all "
+        f"through {kern.SPAN_SOURCE}")
+
+
 def serve_run(label, mods, engine, params, reqs, vocab, need):
     """One run of a serving path with every launch counter set to 0 just
     before it and read just after. Every request is served, unless the
@@ -1225,6 +1290,7 @@ def serve_qwen(mods):
         _, c, _ = serve_run(label, mods, engine, params,
                             serve_requests(cfg.vocab_size, seed=0),
                             cfg.vocab_size, need)
+        span_route_launches(label, engine, c, cfg.n_layers)
         counts = counts or c
     del params
     torch.cuda.empty_cache()
@@ -1284,6 +1350,7 @@ def serve_mixtral(mods):
                              page_size=16, draft_k=draft_k)
         _, c, w = serve_run(label, mods, engine, params, reqs(),
                             cfg.vocab_size, need)
+        span_route_launches(label, engine, c, cfg.n_layers)
         if engine.counters["pages_trimmed"] == 0:
             raise AssertionError(f"{label}: the window trimmed no page")
         if counts is None:
@@ -1837,6 +1904,7 @@ def serve_encdec(mods):
         raise AssertionError(f"qwen2-vl: launches {vl_counts} != "
                              f"{cfg.n_layers} x ({steps} steps, {spans} "
                              f"spans)")
+    span_route_launches("qwen2_vl_bf16", engine, vl_counts, cfg.n_layers)
     hits = {r.rid: r.cached_prefix_len for r in reqs}
     text_hits = sum(v for rid, v in hits.items() if rid % 2 == 0)
     if (any(hits[rid] for rid in hits if rid % 2) or text_hits == 0
@@ -2262,6 +2330,8 @@ def main() -> int:
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    global FLASH_ROW_C, row_steps
+    from repro_torch.kernels.ref import FLASH_ROW_C, row_steps
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as kern
     from repro_torch.kernels import flash_attention as flash
@@ -2290,10 +2360,21 @@ def main() -> int:
     libs = build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f}s "
         f"{[str(p.relative_to(ROOT)) for p in libs.values()]}")
-    for lib in libs.values():
+    for src, lib in libs.items():
         for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or (src == kern.SPAN_SOURCE and "entry function" in line)):
                 log(f"  ptxas: {line.strip()}")
+    # the span kernel's dynamic shared memory per block at Mixtral's table
+    # width (289 pages of 16)
+    for d in kern.SPAN_HEAD_DIMS:
+        for pdt in (torch.bfloat16, torch.int8):
+            _, smem, per_sm = kern.span_plan(
+                kern._DTYPE_CODE[pdt], 4, 128, 48, 8, d, 16, 289,
+                torch.cuda.get_device_properties(0).multi_processor_count)
+            log(f"  span kernel D={d} {str(pdt).split('.')[-1]} pages: "
+                f"{smem} bytes of shared memory per block, {per_sm} "
+                f"blocks per SM")
 
     # 3. kernels against their plain versions at serving shapes
     variants = []
@@ -2306,7 +2387,7 @@ def main() -> int:
     variants.append(kernel_case(kern, "paged_decode_attention", "bf16",
                                 t=1, d=128, window=500))
     variants.append(kernel_case(kern, "paged_decode_span_attention", "bf16",
-                                t=128, d=128, window=500))
+                                t=128, d=128, window=500, fault=True))
     # Mixtral's: max_batch 4, 6 query heads per KV head, the 4096-token
     # window; one row below the window, one whose span straddles its
     # edge, two with trimmed pages
@@ -2316,7 +2397,12 @@ def main() -> int:
         variants.append(kernel_case(kern, "paged_decode_attention", pages,
                                     t=1, **mix_attn))
         variants.append(kernel_case(kern, "paged_decode_span_attention",
-                                    pages, t=128, **mix_attn))
+                                    pages, t=128, fault=pages != "f32",
+                                    **mix_attn))
+    # 16-token spans at Mixtral's heads: byte-bound
+    for pages in ("bf16", "int8"):
+        variants.append(kernel_case(kern, "paged_decode_span_attention",
+                                    pages, t=16, **mix_attn))
     # phi4-mini's heads: 3 query heads per KV head, D=128, B=4
     phi4_attn = dict(b=4, h=24, kv=8, d=128, max_ctx=1024)
     for pages in ("bf16", "f32"):
@@ -2324,11 +2410,19 @@ def main() -> int:
                                     t=1, **phi4_attn))
         variants.append(kernel_case(kern, "paged_decode_span_attention",
                                     pages, t=128, **phi4_attn))
+    # phi4-mini's 128K context over the engine's 8-slot pages: a table row
+    # of 16,385 pages, whose ids the span kernel reads stage by stage
+    wide_attn = dict(h=24, kv=8, d=128, p=8, ctxs=(131072,))
+    for pages in ("bf16", "int8"):
+        variants.append(kernel_case(kern, "paged_decode_span_attention",
+                                    pages, t=16, **wide_attn))
     for v in variants:
         log(f"kernel {v['name']} pages={v['pages']} t={v['t']} b={v['b']} "
             f"h={v['h']}/{v['kv']} d={v['d']} window={v['window']} "
-            f"max_ctx={v['max_ctx']} trimmed_pages={v['trimmed_pages']}: "
-            f"max_abs_err={v['max_abs_err']:.3e} "
+            f"max_ctx={v['max_ctx']} trimmed_pages={v['trimmed_pages']} "
+            f"source={v['source']}: "
+            f"max_abs_err={v['max_abs_err']:.3e} row_steps={v['row_steps']} "
+            f"planted_fault(window-1, window+1)={v['planted_fault']} "
             f"ms={v['ms']:.4f} plain_ms={v['plain_ms']:.4f} "
             f"library_ms={v['library_ms']:.4f} bound_ms={v['bound_ms']:.4f}"
             f" ({v['bound_by']})")
@@ -2513,8 +2607,9 @@ def main() -> int:
             rep = [v for v in mine if v["pages"] == "bf16" and v["h"] == 48
                    and v["t"] in (1, 128)][0]
             keys = ("pages", "t", "b", "h", "kv", "d", "window", "max_ctx",
-                    "trimmed_pages", "max_abs_err", "ms", "plain_ms",
-                    "library_ms", "bound_ms", "bound_by")
+                    "trimmed_pages", "source", "max_abs_err", "row_steps",
+                    "planted_fault", "ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by")
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCES[kname],
             "replaces": replaces, "launches": main_path[kname],

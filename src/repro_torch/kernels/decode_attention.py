@@ -1,7 +1,8 @@
 """Decode attention on Hopper: wrappers of the CUDA kernels in
-``csrc/decode_attention.cu`` (dense ring caches) and
-``csrc/paged_attention.cu`` (the page pool), and their plain-torch
-versions.
+``csrc/decode_attention.cu`` (dense ring caches),
+``csrc/paged_attention.cu`` (the page pool) and
+``csrc/paged_span_attention.cu`` (spans of bf16 queries over bf16 or int8
+pages), and their plain-torch versions.
 
 Port of ``repro/kernels/decode_attention.py``'s ``decode_attention`` (one
 query against a dense ring cache), ``paged_decode_attention`` and
@@ -24,17 +25,25 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.build import load
 
 SOURCE = "paged_attention.cu"
+SPAN_SOURCE = "paged_span_attention.cu"
 DENSE_SOURCE = "decode_attention.cu"
+# head dims the span kernel of SPAN_SOURCE is built for: every multiple of
+# 16 that a config serves through the page pool (16 in the smoke configs),
+# and 256 for the tests
+SPAN_HEAD_DIMS = (16, 64, 112, 128, 256)
 launches: Dict[str, int] = {"decode_attention": 0,
                             "paged_decode_attention": 0,
                             "paged_decode_span_attention": 0}
+# span launches by the source whose kernel ran
+span_launches: Dict[str, int] = {SOURCE: 0, SPAN_SOURCE: 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, span_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -143,6 +152,76 @@ def _launch(q, k_pages, v_pages, page_table, pos, k_scale, v_scale,
     return out
 
 
+def span_source(q_dtype: torch.dtype, page_dtype: torch.dtype,
+                d: int) -> str:
+    """The CUDA source whose kernel a span call on the card launches: the
+    span kernel for bf16 queries over bf16 or int8 pages at a head dim it
+    is built for, ``paged_attention.cu``'s body otherwise. Fixed by the
+    dtypes and the head dim before any launch."""
+    if (q_dtype == torch.bfloat16
+            and page_dtype in (torch.bfloat16, torch.int8)
+            and d in SPAN_HEAD_DIMS):
+        return SPAN_SOURCE
+    return SOURCE
+
+
+def _span_lib() -> ctypes.CDLL:
+    lib = load(SPAN_SOURCE)
+    if lib.paged_span_attention.argtypes is None:
+        lib.paged_span_attention.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        lib.paged_span_attention.restype = ctypes.c_int
+        lib.paged_span_plan.argtypes = (
+            [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_int)])
+        lib.paged_span_plan.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=256)
+def span_plan(page_code: int, b: int, t: int, h: int, kv: int, d: int,
+              p: int, m: int, num_sms: int) -> Tuple[int, int, int]:
+    """(key-range splits, shared-memory bytes of a block, blocks an SM
+    holds) of the span kernel at a shape."""
+    out = (ctypes.c_int * 3)()
+    rc = _span_lib().paged_span_plan(page_code, b, t, h, kv, d, p, m,
+                                     num_sms, out)
+    if rc != 0:
+        raise ValueError(f"no span-kernel plan for B={b} T={t} H={h} "
+                         f"KV={kv} D={d} P={p} M={m} (cudaError {rc})")
+    return out[0], out[1], out[2]
+
+
+def _launch_span(q, k_pages, v_pages, page_table, pos, k_scale, v_scale,
+                 window: Optional[int]) -> torch.Tensor:
+    """The span kernel of SPAN_SOURCE: q (B,T,H,D) bf16 -> out."""
+    _check(q, k_pages, v_pages, page_table, pos, k_scale, v_scale)
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    b, t, h, d = q.shape
+    n, p, kv, _ = k_pages.shape
+    m = page_table.shape[1]
+    page_code = _DTYPE_CODE[k_pages.dtype]
+    splits, _, _ = span_plan(page_code, b, t, h, kv, d, p, m,
+                             _num_sms(q.device.index))
+    out = torch.empty_like(q)
+    work = None
+    if splits > 1:  # partial softmax states of the key-range splits
+        work = torch.empty(splits * b * t * h * (d + 2),
+                           dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptr = lambda x: None if x is None else x.data_ptr()
+    rc = _span_lib().paged_span_attention(
+        page_code, ptr(q), ptr(k_pages), ptr(v_pages), ptr(k_scale),
+        ptr(v_scale), ptr(page_table), ptr(pos), ptr(out), ptr(work), b, t,
+        h, kv, d, n, p, m, 0 if window is None else int(window),
+        float(d ** -0.5), splits, stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_span_attention kernel launch failed: "
+                           f"cudaError {rc}")
+    return out
+
+
 def paged_decode_attention_plain(q, k_pages, v_pages, page_table, pos, *,
                                  k_scale=None, v_scale=None,
                                  window: Optional[int] = None
@@ -195,9 +274,15 @@ def paged_decode_span_attention(q: torch.Tensor, k_pages: torch.Tensor,
         return paged_decode_span_attention_plain(
             q, k_pages, v_pages, page_table, pos, k_scale=k_scale,
             v_scale=v_scale, window=window)
-    out = _launch(q, k_pages, v_pages, page_table, pos, k_scale, v_scale,
-                  window, pos_offset=0)
+    src = span_source(q.dtype, k_pages.dtype, q.shape[-1])
+    if src == SPAN_SOURCE:
+        out = _launch_span(q, k_pages, v_pages, page_table, pos, k_scale,
+                           v_scale, window)
+    else:
+        out = _launch(q, k_pages, v_pages, page_table, pos, k_scale,
+                      v_scale, window, pos_offset=0)
     launches["paged_decode_span_attention"] += 1
+    span_launches[src] += 1
     return out
 
 

@@ -5,7 +5,9 @@ paged-attention, grouped-GEMM, RWKV-6 WKV and embedding-bag oracles in
 They materialize what the kernels never do: the (S_q, S_k) score matrix,
 each request's contiguous KV view, gathered (and dequantized) from the
 page pool, each expert's weights in f32 and every bag's (bag, D) rows;
-the WKV oracle walks the recurrence one token at a time.
+the WKV oracle walks the recurrence one token at a time. ``row_steps``
+and ``FLASH_ROW_C`` are the row-by-row limit that bf16 attention kernels
+are held to against these oracles.
 """
 
 from __future__ import annotations
@@ -15,6 +17,20 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+# bf16 attention outputs are held, besides an absolute tolerance, row by
+# row: |got - want| <= FLASH_ROW_C bf16 steps (2^-8) of the row's largest
+# |want|. Most rows average hundreds of keys to |out| ~ 0.05, where the
+# absolute tolerance alone is loose; a kernel run with its window off by
+# one key fails this limit.
+BF16_STEP = 2.0 ** -8
+FLASH_ROW_C = 4.0
+
+
+def row_steps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| in bf16 steps of its row's largest |want|."""
+    err = (got.float() - want.float()).abs()
+    scale = want.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+    return float((err / scale).max()) / BF16_STEP
 
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor,

@@ -66,14 +66,9 @@ from repro_torch.train.step import init_train_state, make_train_step
 pytestmark = pytest.mark.gpu
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-FLASH_ROW_C = 4.0  # chip_smoke.py's limit for bf16 flash outputs
-
-
-def _row_steps(got, want):
-    """max |got - want| in bf16 steps (2^-8) of its row's largest |want|."""
-    err = (got.float() - want.float()).abs()
-    scale = want.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
-    return float((err / scale).max()) * 2.0 ** 8
+# the row limit chip_smoke.py holds bf16 flash outputs to
+FLASH_ROW_C = ref.FLASH_ROW_C
+_row_steps = ref.row_steps
 
 
 @pytest.fixture
