@@ -138,10 +138,13 @@ each with the kernel run with its last K tile skipped, a planted fault that
 must fail the limit, and torch.matmul's time beside it.
 The kernels phase also holds the flash-attention kernel against its plain
 version at qwen2-0.5B's training shape (4 x 14 heads, S=2048, D=64), bf16
-and f32, causal, windowed (512) and bidirectional, and at smoke widths:
+and f32, causal, windowed (512) and bidirectional, at smoke widths and at
+Mixtral's ring prefill (48 heads x 128, a 4500-token prompt, window 4096):
 max |error| within TOL, bf16 also within FLASH_ROW_C bf16 steps of each
 row's largest |value|; the windowed cases also run the kernel with the
-window one key off, a planted fault that must fail the same limits.
+window one key off, a planted fault that must fail the same limits. Each
+bf16 case logs its key-range splits (flash_plan), and the build logs the
+flash source's ptxas lines (registers, spills, shared memory).
 The kernels phase also holds the chunked RWKV-6 WKV kernel against its
 plain version (f32, the model's only WKV dtype) at rwkv6's heads (32 x
 64): a 1024-token bucketed prefill, a batch of 16-token spans from a
@@ -572,6 +575,18 @@ def matmul_case(in_dt: str, out_dt: str, m: int, k: int, n: int,
     }
 
 
+def flash_splits(q, k, v, causal, window):
+    """The key-range splits of a bf16 flash call (flash_plan); None for
+    f32, whose body never splits."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash
+    if q.dtype != torch.bfloat16:
+        return None
+    return flash.flash_plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                            causal=causal, window=window,
+                            num_sms=flash._num_sms(q.device.index)).splits
+
+
 def flash_case(dtype: str, *, causal: bool = True, window=None, bh: int = 56,
                s: int = 2048, d: int = 64, seed: int = 0):
     """The flash kernel at one shape: max error against its plain version
@@ -617,7 +632,9 @@ def flash_case(dtype: str, *, causal: bool = True, window=None, bh: int = 56,
             raise AssertionError(f"flash_attention {dtype}: window {w} "
                                  f"instead of {window} passes the limit "
                                  f"({reading})")
-    # SDPA on the same (BH, S, D) inputs: the library's time
+    # SDPA on the same (BH, S, D) inputs: the library's time. A window
+    # needs a materialized boolean mask, which rules out SDPA's flash
+    # backend: that reading is a handicapped yardstick
     mask = None
     if window is not None:
         pos = torch.arange(s, device=dev)
@@ -645,9 +662,14 @@ def flash_case(dtype: str, *, causal: bool = True, window=None, bh: int = 56,
     t_ops = flops / PEAK_FLOPS["float32" if dtype == "f32" else "bfloat16"]
     return {
         "name": "flash_attention", "dtype": dtype, "bh": bh, "s": s, "d": d,
-        "causal": causal, "window": window, "max_abs_err": err,
+        "causal": causal, "window": window, "splits": flash_splits(q, k, v,
+                                                                  causal,
+                                                                  window),
+        "max_abs_err": err,
         "row_steps": steps, "planted_fault": planted, "ms": ms,
         "plain_ms": plain_ms, "library_ms": library_ms,
+        "library": ("SDPA, materialized mask (no flash backend)"
+                    if mask is not None else "SDPA"),
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "flops": flops,
@@ -1031,6 +1053,7 @@ def flash_cross_case(dtype: str, sq: int, sk: int = 1500, bh: int = 12,
     return {
         "name": "flash_attention", "dtype": dtype, "bh": bh, "s": sq,
         "sk": sk, "d": d, "causal": False, "window": None,
+        "splits": flash_splits(q, k, v, False, None),
         "max_abs_err": err, "row_steps": steps, "planted_fault": [planted],
         "fault": "S_k - 1 keys", "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -2138,7 +2161,8 @@ def _param_count(tree) -> int:
 
 def device_classes(prof):
     """Device time (ms) of a profile, summed by kind of kernel."""
-    classes = (("flash", ("flash_bf16_kernel", "flash_f32_kernel")),
+    classes = (("flash", ("flash_wgmma_kernel", "flash_merge_kernel",
+                          "flash_f32_kernel")),
                ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "Kernel2")),
                ("softmax", ("oftMax", "softmax")),
                ("reduce", ("reduce_kernel",)),
@@ -2362,8 +2386,12 @@ def main() -> int:
         f"{[str(p.relative_to(ROOT)) for p in libs.values()]}")
     for src, lib in libs.items():
         for line in lib.with_suffix(".log").read_text().splitlines():
+            if "C7519" in line:  # notes of fences ptxas inserted
+                continue
             if ("registers" in line or "spill" in line
-                    or (src == kern.SPAN_SOURCE and "entry function" in line)):
+                    or (src in (kern.SPAN_SOURCE, flash.SOURCE)
+                        and ("entry function" in line
+                             or "serialized" in line))):
                 log(f"  ptxas: {line.strip()}")
     # the span kernel's dynamic shared memory per block at Mixtral's table
     # width (289 pages of 16)
@@ -2375,6 +2403,13 @@ def main() -> int:
             log(f"  span kernel D={d} {str(pdt).split('.')[-1]} pages: "
                 f"{smem} bytes of shared memory per block, {per_sm} "
                 f"blocks per SM")
+    # the bf16 flash kernel's, per tile width (one block per SM)
+    for d_tile in flash.TILES:
+        plan = flash.flash_plan(1, 128, 128, d_tile, causal=True,
+                                window=None)
+        log(f"  flash kernel tile width {d_tile}: {plan.smem} bytes of "
+            f"shared memory per block, {plan.keys} keys a tile, "
+            f"{plan.stages} stages")
 
     # 3. kernels against their plain versions at serving shapes
     variants = []
@@ -2455,6 +2490,10 @@ def main() -> int:
                for dt in ("bf16", "f32")
                for kw in ({}, {"window": 512}, {"causal": False},
                           {"bh": 12, "s": 128, "d": 8})]
+    # Mixtral's ring prefill: 48 heads x 128, a 4500-token prompt past the
+    # 4096-token window
+    flashes += [flash_case(dt, bh=48, s=4500, d=128, window=4096)
+                for dt in ("bf16", "f32")]
     # Whisper's cross-attention: S_k = 1500 encoder frames
     flashes += [flash_cross_case(dt, sq) for dt in ("bf16", "f32")
                 for sq in (64, 448)]
@@ -2467,7 +2506,9 @@ def main() -> int:
             f"{v['planted_fault']} "
             f"ms={v['ms']:.4f} "
             f"plain_ms={v['plain_ms']:.4f} library_ms={v['library_ms']:.4f} "
-            f"bound_ms={v['bound_ms']:.4f} ({v['bound_by']})")
+            f"({v.get('library', 'SDPA')}) "
+            f"bound_ms={v['bound_ms']:.4f} ({v['bound_by']}) "
+            f"splits={v['splits']}")
     # the matmul: the self-test's 128^3 (f32, as BIST runs it), the JAX
     # test shapes, a ragged shape, qwen2-0.5B's MLP up projection of a
     # 4096-token prefill

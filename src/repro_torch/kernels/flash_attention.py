@@ -8,12 +8,17 @@ encoder-decoder's cross-attention): causal and windowed masks compare a
 query's position with a key's in one sequence. A wrapper given CPU tensors
 computes the plain version; given CUDA tensors it launches the kernel or
 raises. Each launch adds one to ``launches["flash_attention"]``.
+
+bf16 calls follow a launch plan (``flash_plan``), a pure function of the
+shape computed here on the host: the tile width, the keys and stages of the
+shared-memory ring, and the key-range splits for short query blocks.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -26,6 +31,64 @@ launches: Dict[str, int] = {"flash_attention": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# The bf16 body's tiles (csrc/flash_attention.cu, Tile<DP>): query rows of
+# a work item, and per tile width DP the keys of a K or V tile, the stages
+# of the ring and the Q tiles in flight. tests/test_torch_flash_kernel.py
+# holds them against the build (``bf16_tile``).
+BLOCK_ROWS = 128
+TILES = {64: (128, 4, 2), 128: (64, 4, 2), 256: (64, 2, 1)}
+SMEM_MAX = 232448  # an H100 block's opt-in maximum
+H100_SMS = 132
+
+
+class FlashPlan(NamedTuple):
+    """How a bf16 call runs: ``d_pad`` the row width the kernel reads (D
+    rounded up to a multiple of 8), ``d_tile`` the tile width, ``rows`` and
+    ``keys`` the query rows of a work item and the keys of a tile,
+    ``stages`` the ring's depth, ``splits`` the key-range splits,
+    ``workspace`` the f32 shape of their partial (acc, m, l) or None,
+    ``smem`` the shared-memory bytes of a block."""
+    d_pad: int
+    d_tile: int
+    rows: int
+    keys: int
+    stages: int
+    splits: int
+    workspace: Optional[Tuple[int, int, int, int]]
+    smem: int
+
+
+@functools.lru_cache(maxsize=1024)
+def flash_plan(bh: int, sq: int, sk: int, d: int, *, causal: bool,
+               window: Optional[int], num_sms: int = H100_SMS) -> FlashPlan:
+    """The bf16 launch plan of a call. Splits only when the work items
+    (query tiles x BH) fill at most half the SMs: each item's key tiles are
+    then cut into ``splits`` contiguous ranges, so that about ``num_sms``
+    items run at once, with no range shorter than it must be. Raises
+    ValueError where no plan fits."""
+    if bh < 1 or sq < 1 or sk < 1 or not 1 <= d <= 256 or num_sms < 1:
+        raise ValueError(f"no flash plan for BH={bh} S_q={sq} S_k={sk} "
+                         f"D={d} on {num_sms} SMs")
+    d_pad = -(-d // 8) * 8
+    d_tile = next(t for t in sorted(TILES) if d_pad <= t)
+    keys, stages, q_tiles = TILES[d_tile]
+    smem = (1024 + q_tiles * BLOCK_ROWS * d_tile * 2
+            + 2 * stages * keys * d_tile * 2 + (4 * stages + 2 * q_tiles) * 8)
+    if smem > SMEM_MAX:
+        raise ValueError(f"flash plan at D={d}: {smem} bytes of shared "
+                         f"memory, above {SMEM_MAX}")
+    items = -(-sq // BLOCK_ROWS) * bh  # work items before any split
+    tiles = -(-sk // keys)  # the most key tiles an item may visit
+    if window is not None:
+        tiles = min(tiles, -(-(window + BLOCK_ROWS - 1) // keys) + 1)
+    splits = 1
+    if 2 * items <= num_sms and tiles > 1:
+        per = -(-tiles // (num_sms // items))
+        splits = -(-tiles // per)
+    work = (splits, bh, sq, d_pad + 2) if splits > 1 else None
+    return FlashPlan(d_pad, d_tile, BLOCK_ROWS, keys, stages, splits, work,
+                     smem)
+
 
 def reset_launches() -> None:
     for name in launches:
@@ -36,10 +99,54 @@ def _lib() -> ctypes.CDLL:
     lib = load(SOURCE)
     if lib.flash_attention.argtypes is None:
         lib.flash_attention.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-            + [ctypes.c_float, ctypes.c_void_p])
+            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.flash_attention.restype = ctypes.c_int
+        lib.flash_bf16_tile.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.flash_bf16_tile.restype = ctypes.c_int
+        lib.flash_wgmma_probe.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 3
+            + [ctypes.c_int, ctypes.c_void_p])
+        lib.flash_wgmma_probe.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def bf16_tile(d_tile: int) -> Tuple[int, int, int, int]:
+    """(query rows, keys, stages, shared-memory bytes) of the built bf16
+    body at tile width ``d_tile``: what ``flash_plan`` must agree with."""
+    out = (ctypes.c_int * 4)()
+    rc = _lib().flash_bf16_tile(d_tile, out)
+    if rc != 0:
+        raise ValueError(f"no bf16 tile of width {d_tile}")
+    return tuple(out)
+
+
+def wgmma_probe(mode: int, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The kernel's two products alone, one warpgroup, bf16 in, f32 out:
+    mode 0 is x (64, K) @ y (64, K)^T (both operands through TMA into
+    swizzled shared memory), mode 1 x (64, K) @ y (K, 64) (x in registers,
+    y through the transposed descriptor); K a multiple of 16 up to 64."""
+    for t in (x, y):
+        if (t.device.type != "cuda" or t.dtype != torch.bfloat16
+                or not t.is_contiguous()):
+            raise ValueError("probe needs contiguous bf16 CUDA tensors")
+    k = x.shape[1]
+    want = (64, k) if mode == 0 else (k, 64)
+    if x.shape != (64, k) or y.shape != want:
+        raise ValueError(f"probe mode {mode}: x {tuple(x.shape)}, y "
+                         f"{tuple(y.shape)}")
+    out = torch.empty((64, 64), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _lib().flash_wgmma_probe(mode, x.data_ptr(), y.data_ptr(),
+                                  out.data_ptr(), k, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_wgmma_probe launch failed: cudaError {rc}")
+    return out
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -118,14 +225,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v, window)
     bh, s, d = q.shape
     sk = k.shape[1]
+    work, splits, width = None, 1, d
+    if q.dtype == torch.bfloat16:
+        plan = flash_plan(bh, s, sk, d, causal=causal, window=window,
+                          num_sms=_num_sms(q.device.index))
+        width, splits = plan.d_pad, plan.splits
+        if width != d:  # TMA reads rows of 16-byte multiples: zero
+            # columns up to d_pad add nothing to the scores or the output
+            q, k, v = (torch.nn.functional.pad(t, (0, width - d))
+                       for t in (q, k, v))
+        elif any(t.data_ptr() % 16 for t in (q, k, v)):
+            q, k, v = (t.clone() for t in (q, k, v))
+        if plan.workspace is not None:
+            work = torch.empty(plan.workspace, dtype=torch.float32,
+                               device=q.device)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _lib().flash_attention(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), bh, s, sk, sk - int(drop_last_key), d, int(causal),
-        0 if window is None else int(window), float(d ** -0.5), stream)
+        out.data_ptr(), None if work is None else work.data_ptr(), bh, s,
+        sk, sk - int(drop_last_key), width, int(causal),
+        0 if window is None else int(window), float(d ** -0.5), splits, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError {rc}")
     launches["flash_attention"] += 1
-    return out
+    return out if width == d else out[..., :d].contiguous()
