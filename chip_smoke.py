@@ -11,7 +11,12 @@ result line):
   3. kernels - each kernel variant against its plain torch version on the
                card at the shapes of the serving paths, with its time, the
                plain version's, one library call's (a yardstick the port
-               never calls) and the least time the card could take:
+               never calls) and the least time the card could take; the
+               kernel's and the library call's times both as the
+               wrapper's (CUDA events, host time included: ms,
+               library_ms) and as device time (torch.profiler over the
+               same 20 L2-flushed launches, the flushes left out:
+               device_ms, library_device_ms):
                the paged-attention kernels x {f32, bf16, int8} pages at
                qwen's shapes (H=14, KV=2, D=64, P=16, B=8, contexts up to
                2048, spans of 3 and 128 tokens, and a D=128 windowed case)
@@ -26,7 +31,9 @@ result line):
                D=128: a GQA group of 3), qwen2.5-3B's (16/2), internlm2's
                (16/8) and Mixtral's (48/8) head shapes: a 4096-slot ring
                with wrapped rows, a ragged 1000-slot ring, rows at pos 0, a
-               window below the ring width, and phi4's serving shape; each
+               window below the ring width, phi4's serving shape, and
+               Whisper-small's decoder self and cross attention (12/12,
+               D=64, W 448 and 1500); each
                also run at pos - 1 (one key dropped), a planted fault that
                must fail the limit; the paged kernels also at phi4's heads;
                the span's bf16 and int8 cases (the bf16 route, through
@@ -135,7 +142,9 @@ The kernels phase also holds the matmul kernel against its plain version
 (f32 and bf16 inputs at the self-test's 128^3, the JAX test shapes, a
 ragged shape and qwen2-0.5B's MLP up projection of a 4096-token prefill),
 each with the kernel run with its last K tile skipped, a planted fault that
-must fail the limit, and torch.matmul's time beside it.
+must fail the limit, and torch.matmul's time beside it. The build logs the
+ptxas lines of the matmul's and the dense decode's sources and the shared
+memory of their bf16 bodies.
 The kernels phase also holds the flash-attention kernel against its plain
 version at qwen2-0.5B's training shape (4 x 14 heads, S=2048, D=64), bf16
 and f32, causal, windowed (512) and bidirectional, at smoke widths and at
@@ -252,6 +261,87 @@ def timed_ms(fn, flush, iters: int = 20, warmup: int = 3) -> float:
         e.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+
+
+_FLUSH_KERNELS: set = set()
+
+
+def _device_rows(prof):
+    """(name, device us, count) of each kind of device activity in a
+    profile."""
+    for e in prof.key_averages():
+        if "CUDA" in str(getattr(e, "device_type", "")):
+            yield e.key, getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0.0)), \
+                e.count
+
+
+def _profiled(fn, flush, iters: int):
+    """torch.profiler (device activity only) over ``iters`` L2-flushed
+    launches of ``fn``. A session may lose its first device events, so it
+    opens with a flush and a sync of its own."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flush.zero_()
+        torch.cuda.synchronize()
+        for _ in range(iters):
+            flush.zero_()
+            if fn is not None:
+                fn()
+        torch.cuda.synchronize()
+    return list(_device_rows(prof))
+
+
+def device_ms(fn, flush, iters: int = 20, tries: int = 3) -> float:
+    """Device time of ``fn`` in ms a launch, from torch.profiler over the
+    same ``iters`` L2-flushed launches that timed_ms times: the case's own
+    device activity, the flush's left out. Below ~0.03 ms, timed_ms reads
+    the host's pace (the wrapper's Python and the launch); this reads the
+    card's. A kind of activity seen ``count`` times adds its mean time
+    round(count / iters) times, so an event the profiler lost does not
+    lower the reading; a session that recorded none of the case's
+    activity is run again, at most ``tries`` times."""
+    import torch
+    for _ in range(tries):
+        if not _FLUSH_KERNELS:
+            _FLUSH_KERNELS.update(name for name, us, _ in
+                                  _profiled(None, flush, 2) if us > 0)
+    if not _FLUSH_KERNELS:
+        raise AssertionError("the profile recorded no flush")
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        rows = [(us, count) for name, us, count in _profiled(fn, flush, iters)
+                if name not in _FLUSH_KERNELS and us > 0]
+        if rows:
+            return sum(us / count * max(1, round(count / iters))
+                       for us, count in rows) / 1e3
+    raise AssertionError("the profile recorded no device time")
+
+
+def case_times(run, plain, library, flush, plain_iters: int = 20):
+    """A kernel case's times in ms: ``ms``, ``plain_ms`` and
+    ``library_ms`` from timed_ms (host time included), ``device_ms`` and
+    ``library_device_ms`` from device_ms; the library's are None where no
+    PyTorch call computes the same function."""
+    return {
+        "ms": timed_ms(run, flush),
+        "plain_ms": timed_ms(plain, flush, iters=plain_iters),
+        "library_ms": None if library is None else timed_ms(library, flush),
+        "device_ms": device_ms(run, flush),
+        "library_device_ms": (None if library is None
+                              else device_ms(library, flush)),
+    }
+
+
+def times_text(v) -> str:
+    """A case's times for its log line."""
+    lib = ("null" if v["library_ms"] is None else
+           f"{v['library_ms']:.4f} library_device_ms="
+           f"{v['library_device_ms']:.4f}")
+    return (f"ms={v['ms']:.4f} device_ms={v['device_ms']:.4f} "
+            f"plain_ms={v['plain_ms']:.4f} library_ms={lib}")
 
 
 # ----------------------------------------------------------------- kernels
@@ -384,9 +474,7 @@ def kernel_case(kern, name: str, pages: str, *, t: int, d: int = 64,
                                                      attn_mask=mask)
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    ms = timed_ms(run, flush)
-    plain_ms = timed_ms(plain, flush)
-    library_ms = timed_ms(library, flush)
+    times = case_times(run, plain, library, flush)
 
     # least time for this work: every valid key read once, q read once,
     # out written once; 4*D flops per (query row, valid key)
@@ -405,8 +493,8 @@ def kernel_case(kern, name: str, pages: str, *, t: int, d: int = 64,
         "name": name, "pages": pages, "t": t, "b": b, "h": h, "kv": kv,
         "d": d, "window": window, "max_ctx": max_ctx,
         "trimmed_pages": trimmed, "source": source, "max_abs_err": err,
-        "row_steps": steps, "planted_fault": planted, "ms": ms,
-        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "row_steps": steps, "planted_fault": planted, **times,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "flops": flops,
     }
@@ -472,9 +560,7 @@ def gemm_case(name: str, xdt: str, wdt: str, *, t: int, d: int, f: int,
         library = lambda: torch._grouped_mm(x, w, offs=ends)
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    ms = timed_ms(run, flush)
-    plain_ms = timed_ms(plain, flush)
-    library_ms = timed_ms(library, flush) if library else None
+    times = case_times(run, plain, library, flush)
 
     # least time: the rows of live tiles read once, the weights of every
     # expert they route to read once, the output written once
@@ -505,8 +591,7 @@ def gemm_case(name: str, xdt: str, wdt: str, *, t: int, d: int, f: int,
     return {
         "name": name, "x": xdt, "w": wdt, "t": t, "d": d, "f": f,
         "m": int(x.shape[0]), "experts": experts, "max_abs_err": err,
-        "max_abs_out": big, "tol": tol,
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "max_abs_out": big, "tol": tol, **times,
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "flops": flops,
@@ -558,9 +643,7 @@ def matmul_case(in_dt: str, out_dt: str, m: int, k: int, n: int,
     # torch.matmul in the inputs' dtype (TF32 off): the library's time
     library = lambda: torch.matmul(a, b)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    ms = timed_ms(run, flush)
-    plain_ms = timed_ms(plain, flush)
-    library_ms = timed_ms(library, flush)
+    times = case_times(run, plain, library, flush)
     flops = 2.0 * m * n * k
     nbytes = (m * k + k * n) * a.element_size() + m * n * got.element_size()
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -568,8 +651,8 @@ def matmul_case(in_dt: str, out_dt: str, m: int, k: int, n: int,
     return {
         "name": "matmul", "in": in_dt, "out": out_dt, "m": m, "k": k,
         "n": n, "max_abs_err": err, "tol": tol, "max_abs_out": big,
-        "planted_fault": bad_err, "ms": ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "planted_fault": bad_err, **times,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "flops": flops,
     }
@@ -644,9 +727,7 @@ def flash_case(dtype: str, *, causal: bool = True, window=None, bh: int = 56,
     library = lambda: F.scaled_dot_product_attention(
         q4, k4, v4, attn_mask=mask, is_causal=causal and mask is None)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    ms = timed_ms(run, flush)
-    plain_ms = timed_ms(plain, flush, iters=5)
-    library_ms = timed_ms(library, flush)
+    times = case_times(run, plain, library, flush, plain_iters=5)
     # least time: q, k, v read once, out written once; 4 * D flops per
     # (query, allowed key) pair, counted from the mask
     qi = torch.arange(s, device=dev, dtype=torch.float64)
@@ -666,8 +747,7 @@ def flash_case(dtype: str, *, causal: bool = True, window=None, bh: int = 56,
                                                                   causal,
                                                                   window),
         "max_abs_err": err,
-        "row_steps": steps, "planted_fault": planted, "ms": ms,
-        "plain_ms": plain_ms, "library_ms": library_ms,
+        "row_steps": steps, "planted_fault": planted, **times,
         "library": ("SDPA, materialized mask (no flash backend)"
                     if mask is not None else "SDPA"),
         "bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -689,8 +769,10 @@ def bf16_steps(got, want) -> float:
 # (label, H, KV, D, W, pos of each row, window): head shapes of phi4-mini,
 # qwen2.5-3B, internlm2 and Mixtral; rings of 4096 slots with wrapped rows,
 # a ragged 1000-slot ring, rows at pos 0 (no valid key: the uniform mean),
-# a window below the ring width, and phi4's serving shape (the dense
-# serve's window of 1056 slots, B = 4)
+# a window below the ring width, phi4's serving shape (the dense serve's
+# window of 1056 slots, B = 4), and Whisper-small's decoder at the serve's
+# max_batch 4 (12 heads of 64, g = 1): self attention over its 448-slot
+# text window, cross attention over the 1500 encoder frames
 DENSE_CASES = (
     ("phi4_serve", 24, 8, 128, 1056, (211, 530, 817, 1050), None),
     ("phi4_ring", 24, 8, 128, 4096, (0, 1000, 4096, 6000), None),
@@ -699,6 +781,8 @@ DENSE_CASES = (
     ("internlm2", 16, 8, 128, 1000, (0, 500, 1000, 1001), None),
     ("mixtral_ring", 48, 8, 128, 4096, (1000, 4096, 4400, 9000), 4096),
     ("mixtral_window", 48, 8, 128, 4096, (300, 2000, 4500, 9000), 512),
+    ("whisper_self", 12, 12, 64, 448, (5, 40, 97, 128), None),
+    ("whisper_cross", 12, 12, 64, 1500, (1500, 1500, 1500, 1500), None),
 )
 DENSE_F32_TOL = 1e-5  # fp32 rounding of the same sums in another order
 
@@ -763,9 +847,7 @@ def dense_case(label: str, dtype: str, h: int, kv: int, d: int, w: int,
     library = lambda: F.scaled_dot_product_attention(qh, kh, vh,
                                                      attn_mask=bias)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    ms = timed_ms(run, flush)
-    plain_ms = timed_ms(plain, flush)
-    library_ms = timed_ms(library, flush)
+    times = case_times(run, plain, library, flush)
 
     # least time: each valid key and value read once (a row with none
     # averages all W values), q read once, out written once; 4 * D flops
@@ -780,10 +862,11 @@ def dense_case(label: str, dtype: str, h: int, kv: int, d: int, w: int,
     t_ops = flops / PEAK_FLOPS["float32" if dtype == "f32" else "bfloat16"]
     return {
         "name": "decode_attention", "label": label, "dtype": dtype, "b": b,
+        "splits": kern.dense_plan(dt, b, kv, w, kern._num_sms(
+            torch.cuda.current_device())),
         "h": h, "kv": kv, "d": d, "w": w, "pos": list(pos),
         "window": window, "max_abs_err": err, "reading": reading(got),
-        "limit": limit, "planted_fault": planted, "ms": ms,
-        "plain_ms": plain_ms, "library_ms": library_ms,
+        "limit": limit, "planted_fault": planted, **times,
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "flops": flops,
@@ -865,8 +948,7 @@ def wkv_case(label: str, b: int, s: int, h: int, hd: int, chunk: int,
             raise AssertionError(f"rwkv_wkv {label}: a zero pad prefix "
                                  f"left nonzero outputs or state")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    ms = timed_ms(run, flush)
-    plain_ms = timed_ms(plain, flush, iters=5)
+    times = case_times(run, plain, None, flush, plain_iters=5)
     # least time: r, k, v, logw read once and out written once, u and the
     # initial state read once, the final state written once; f32 flops
     # ~ B*H*S*(4*hd^2 + 4*chunk*hd) (inter, state update, scores, intra)
@@ -879,7 +961,7 @@ def wkv_case(label: str, b: int, s: int, h: int, hd: int, chunk: int,
         "name": "rwkv_wkv", "label": label, "b": b, "s": s, "h": h,
         "hd": hd, "chunk": chunk, "s0": with_s0, "front_pad": front_pad,
         "max_abs_err": err, "limit": limit, "planted_fault": planted,
-        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        **times,
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "flops": flops,
@@ -977,9 +1059,7 @@ def gather_case(label: str, dtype: str, v: int, d: int, n: int, bag: int,
                                       per_sample_weights=w_lib)
     lib_err = float((library().float() - want.float()).abs().max())
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    ms = timed_ms(run, flush)
-    plain_ms = timed_ms(plain, flush, iters=5)
-    library_ms = timed_ms(library, flush)
+    times = case_times(run, plain, library, flush, plain_iters=5)
     # least time: each distinct row these indices name read once, idx and
     # w read once, out written once; 2 flops per weighted element (f32)
     unique = int(torch.unique(rows).numel())
@@ -995,8 +1075,8 @@ def gather_case(label: str, dtype: str, v: int, d: int, n: int, bag: int,
         "v": v, "d": d, "n": n, "bag": bag, "kind": kind,
         "unique_rows": unique, "max_abs_err": err, "reading": got_reading,
         "limit": limit, "planted_fault": planted,
-        "library_max_abs_err": lib_err, "ms": ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "library_max_abs_err": lib_err, **times,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "flops": flops,
     }
@@ -1043,9 +1123,7 @@ def flash_cross_case(dtype: str, sq: int, sk: int = 1500, bh: int = 12,
     library = lambda: F.scaled_dot_product_attention(q[None], k[None],
                                                      v[None])
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    ms = timed_ms(run, flush)
-    plain_ms = timed_ms(plain, flush, iters=5)
-    library_ms = timed_ms(library, flush)
+    times = case_times(run, plain, library, flush, plain_iters=5)
     flops = 4.0 * d * bh * sq * sk
     nbytes = 2 * bh * (sq + sk) * d * q.element_size()
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -1055,7 +1133,7 @@ def flash_cross_case(dtype: str, sq: int, sk: int = 1500, bh: int = 12,
         "sk": sk, "d": d, "causal": False, "window": None,
         "splits": flash_splits(q, k, v, False, None),
         "max_abs_err": err, "row_steps": steps, "planted_fault": [planted],
-        "fault": "S_k - 1 keys", "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "fault": "S_k - 1 keys", **times,
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "flops": flops,
@@ -2389,7 +2467,8 @@ def main() -> int:
             if "C7519" in line:  # notes of fences ptxas inserted
                 continue
             if ("registers" in line or "spill" in line
-                    or (src in (kern.SPAN_SOURCE, flash.SOURCE)
+                    or (src in (kern.SPAN_SOURCE, flash.SOURCE, mm.SOURCE,
+                                kern.DENSE_SOURCE)
                         and ("entry function" in line
                              or "serialized" in line))):
                 log(f"  ptxas: {line.strip()}")
@@ -2410,6 +2489,17 @@ def main() -> int:
         log(f"  flash kernel tile width {d_tile}: {plan.smem} bytes of "
             f"shared memory per block, {plan.keys} keys a tile, "
             f"{plan.stages} stages")
+
+    # the bf16 matmul's and dense decode's, from the built sources
+    bm, bn, bk, stages, group, smem = mm.bf16_tile()
+    log(f"  matmul bf16 body: {bm} x {bn} tiles, K tiles of {bk}, {stages} "
+        f"stages, groups of {group} tile rows, {smem} bytes of shared "
+        f"memory per block (one block per SM)")
+    for dp in (16, 32, 64, 128, 256):
+        keys, stages, splits, smem = kern.dense_bf16_ring(dp)
+        log(f"  dense decode bf16 body tile width {dp}: {keys} keys a "
+            f"stage, {stages} stages, {smem} bytes of shared memory per "
+            f"block, at most {splits} splits (one cluster) a row")
 
     # 3. kernels against their plain versions at serving shapes
     variants = []
@@ -2458,8 +2548,7 @@ def main() -> int:
             f"source={v['source']}: "
             f"max_abs_err={v['max_abs_err']:.3e} row_steps={v['row_steps']} "
             f"planted_fault(window-1, window+1)={v['planted_fault']} "
-            f"ms={v['ms']:.4f} plain_ms={v['plain_ms']:.4f} "
-            f"library_ms={v['library_ms']:.4f} bound_ms={v['bound_ms']:.4f}"
+            f"{times_text(v)} (SDPA) bound_ms={v['bound_ms']:.4f}"
             f" ({v['bound_by']})")
     gemms = []
     mix_d, mix_f = 6144, 16384
@@ -2476,13 +2565,10 @@ def main() -> int:
     gemms.append(gemm_case("grouped_matmul", "bf16", "bf16", t=4, d=mix_d,
                            f=mix_f, all_pad=True))
     for v in gemms:
-        lib = ("null" if v["library_ms"] is None
-               else f"{v['library_ms']:.4f}")
         log(f"kernel grouped_matmul x={v['x']} w={v['w']} t={v['t']} "
             f"M={v['m']} D={v['d']} F={v['f']} experts={v['experts']}: "
             f"max_abs_err={v['max_abs_err']:.3e} (tol {v['tol']:.3e}, max "
-            f"|out| {v['max_abs_out']:.3e}) ms={v['ms']:.4f} "
-            f"plain_ms={v['plain_ms']:.4f} library_ms={lib} "
+            f"|out| {v['max_abs_out']:.3e}) {times_text(v)} "
             f"bound_ms={v['bound_ms']:.4f} ({v['bound_by']}) "
             f"bytes={v['bytes']:.4g} design_weight_bytes="
             f"{v['design_weight_bytes']:.4g}")
@@ -2503,9 +2589,7 @@ def main() -> int:
             f"d={v['d']} causal={v['causal']} window={v['window']}: "
             f"max_abs_err={v['max_abs_err']:.3e} row_steps={v['row_steps']} "
             f"planted_fault({v.get('fault', 'window-1, window+1')})="
-            f"{v['planted_fault']} "
-            f"ms={v['ms']:.4f} "
-            f"plain_ms={v['plain_ms']:.4f} library_ms={v['library_ms']:.4f} "
+            f"{v['planted_fault']} {times_text(v)} "
             f"({v.get('library', 'SDPA')}) "
             f"bound_ms={v['bound_ms']:.4f} ({v['bound_by']}) "
             f"splits={v['splits']}")
@@ -2522,8 +2606,7 @@ def main() -> int:
             f"N={v['n']}: max_abs_err={v['max_abs_err']:.3e} (tol "
             f"{v['tol']:.3e}, max |out| {v['max_abs_out']:.3e}) "
             f"planted_fault(last K tile skipped)={v['planted_fault']:.3e} "
-            f"ms={v['ms']:.4f} plain_ms={v['plain_ms']:.4f} "
-            f"library_ms={v['library_ms']:.4f} (torch.matmul) "
+            f"{times_text(v)} (torch.matmul) "
             f"bound_ms={v['bound_ms']:.5f} ({v['bound_by']})")
     denses = [dense_case(label, dt, h, kv, d, w, pos, window)
               for label, h, kv, d, w, pos, window in DENSE_CASES
@@ -2533,9 +2616,8 @@ def main() -> int:
             f"h={v['h']}/{v['kv']} d={v['d']} W={v['w']} pos={v['pos']} "
             f"window={v['window']}: max_abs_err={v['max_abs_err']:.3e} "
             f"reading={v['reading']:.3e} (limit {v['limit']}) "
-            f"planted_fault(pos-1)={v['planted_fault']:.3e} "
-            f"ms={v['ms']:.4f} plain_ms={v['plain_ms']:.4f} "
-            f"library_ms={v['library_ms']:.4f} (SDPA) "
+            f"planted_fault(pos-1)={v['planted_fault']:.3e} splits="
+            f"{v['splits']} {times_text(v)} (SDPA) "
             f"bound_ms={v['bound_ms']:.5f} ({v['bound_by']})")
     wkvs = [wkv_case(*case) for case in WKV_CASES]
     for v in wkvs:
@@ -2543,8 +2625,7 @@ def main() -> int:
             f"hd={v['hd']} chunk={v['chunk']} s0={v['s0']}: "
             f"max_abs_err={v['max_abs_err']:.3e} (limit {v['limit']:.3e}) "
             f"planted_fault(no bonus)={v['planted_fault']:.3e} "
-            f"ms={v['ms']:.4f} plain_ms={v['plain_ms']:.4f} library_ms=null "
-            f"(no PyTorch call computes the recurrence) "
+            f"{times_text(v)} (no PyTorch call computes the recurrence) "
             f"bound_ms={v['bound_ms']:.5f} ({v['bound_by']})")
     gathers = [gather_case(label, dt, v_, d_, n_, bag, kind)
                for label, v_, d_, n_, bag, kind in GATHER_CASES
@@ -2555,8 +2636,7 @@ def main() -> int:
             f"{v['unique_rows']}: max_abs_err={v['max_abs_err']:.3e} "
             f"reading={v['reading']:.3e} (limit {v['limit']}) "
             f"planted_fault(last position dropped)={v['planted_fault']:.3e} "
-            f"ms={v['ms']:.4f} plain_ms={v['plain_ms']:.4f} "
-            f"library_ms={v['library_ms']:.4f} (F.embedding_bag, max_abs_err"
+            f"{times_text(v)} (F.embedding_bag, max_abs_err"
             f" {v['library_max_abs_err']:.3e}) bound_ms={v['bound_ms']:.5f} "
             f"({v['bound_by']})")
     log(f"kernels phase done at {time.perf_counter() - t_start:.1f}s")
@@ -2660,8 +2740,11 @@ def main() -> int:
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep["library_ms"],
-            "variants": [{k: v.get(k) for k in keys + ("sk",) if k in v}
-                         for v in mine],
+            "device_ms": rep["device_ms"],
+            "library_device_ms": rep["library_device_ms"],
+            "variants": [{k: v.get(k) for k in keys + (
+                "sk", "splits", "device_ms", "library_device_ms") if k in v}
+                for v in mine],
         })
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(smi, flush=True)

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -293,6 +293,19 @@ def paged_decode_span_attention(q: torch.Tensor, k_pages: torch.Tensor,
 _DENSE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+# the bf16 body: keys a ring stage, and the most splits of a row (the blocks
+# of one thread-block cluster); csrc/decode_attention.cu's
+# decode_attention_bf16_ring reports both
+DENSE_KEYS = 64
+DENSE_MAX_SPLITS = 8
+# the f32 body: keys a staged tile, and the most splits of a row
+DENSE_F32_KEYS = 32
+DENSE_F32_MAX_SPLITS = 32
+# the bf16 body's limits: query heads a KV head (mma's 16 rows), head dims
+DENSE_MAX_GROUPS = 16
+DENSE_MAX_D = 256
+
+
 def _dense_lib() -> ctypes.CDLL:
     lib = load(DENSE_SOURCE)
     if lib.decode_attention.argtypes is None:
@@ -300,14 +313,78 @@ def _dense_lib() -> ctypes.CDLL:
             [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.decode_attention.restype = ctypes.c_int
-        lib.decode_attention_splits.argtypes = [ctypes.c_int] * 4
-        lib.decode_attention_splits.restype = ctypes.c_int
+        lib.decode_attention_bf16_ring.argtypes = [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.decode_attention_bf16_ring.restype = ctypes.c_int
     return lib
 
 
+def dense_bf16_ring(dp: int) -> Tuple[int, int, int, int]:
+    """The built bf16 body at tile width ``dp``: (keys a stage, stages,
+    most splits a row, shared-memory bytes a block)."""
+    out = (ctypes.c_int * 4)()
+    rc = _dense_lib().decode_attention_bf16_ring(dp, out)
+    if rc != 0:
+        raise ValueError(f"no bf16 dense ring at tile width {dp}")
+    return out[0], out[1], out[2], out[3]
+
+
 @functools.lru_cache(maxsize=256)
-def _dense_splits(b: int, kv: int, w: int, num_sms: int) -> int:
-    return _dense_lib().decode_attention_splits(b, kv, w, num_sms)
+def dense_plan(dtype: torch.dtype, b: int, kv: int, w: int,
+               num_sms: int) -> int:
+    """Splits of each row's keys for a dense decode call, at most one per
+    stage of W keys. bf16: the largest power of two up to
+    DENSE_MAX_SPLITS (the blocks of one cluster) that keeps B * KV * splits
+    blocks at one an SM: on the H100, 4 splits of 32 rows beat 8 and 2 of
+    48 rows beat 4, while 8 splits of 8 rows beat 4 (the merge costs more
+    with each rank; fewer blocks stream less). f32: blocks
+    enough to fill the card twice, at most DENSE_F32_MAX_SPLITS, and one
+    split once B * KV blocks alone reach the SM count (its splits merge in
+    a second kernel)."""
+    blocks = b * kv
+    if blocks <= 0 or w <= 0:
+        return 1
+    if dtype == torch.float32:
+        if blocks >= num_sms:
+            return 1
+        return max(1, min(-(-2 * num_sms // blocks), -(-w // DENSE_F32_KEYS),
+                          DENSE_F32_MAX_SPLITS))
+    splits = 1
+    while splits < DENSE_MAX_SPLITS and 2 * splits * blocks <= num_sms:
+        splits *= 2
+    return min(splits, -(-w // DENSE_KEYS))
+
+
+def dense_row_keys(pos: int, w: int,
+                   window: Optional[int]) -> Tuple[int, int, bool]:
+    """(start, n, masked): the keys a row at ``pos`` streams, logical key
+    j < n at slot (start + j) % w; a row with no valid key (masked)
+    streams all w slots (the kernel's row_keys)."""
+    lo = max(0, pos - w)
+    if window is not None:
+        lo = max(lo, pos - window)
+    n = pos - lo
+    if n <= 0:
+        return 0, w, True
+    return lo % w, n, False
+
+
+def dense_split_slots(pos: int, w: int, window: Optional[int], splits: int,
+                      keys: int = DENSE_KEYS) -> List[List[int]]:
+    """The ring slots that each of a row's ``splits`` blocks streams, in
+    order: the row's keys in stages of ``keys``, ceil(stages / splits)
+    consecutive stages a block (DENSE_KEYS for the bf16 body,
+    DENSE_F32_KEYS for the f32 one)."""
+    start, n, _ = dense_row_keys(pos, w, window)
+    tiles = -(-n // keys)
+    per = -(-tiles // splits)
+    out = []
+    for r in range(splits):
+        tb = min(tiles, r * per)
+        te = min(tiles, tb + per)
+        out.append([(start + j) % w
+                    for j in range(tb * keys, min(te * keys, n))])
+    return out
 
 
 def _check_dense(q, k_cache, v_cache, pos, window) -> None:
@@ -340,6 +417,15 @@ def _check_dense(q, k_cache, v_cache, pos, window) -> None:
                          f"want int32 ({b},)")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    if q.dtype == torch.bfloat16:
+        if h // kv > DENSE_MAX_GROUPS or d % 8 or d > DENSE_MAX_D:
+            raise ValueError(f"bf16 dense decode takes H / KV <= "
+                             f"{DENSE_MAX_GROUPS} and D a multiple of 8 up "
+                             f"to {DENSE_MAX_D}; got H={h} KV={kv} D={d}")
+        for name, t in (("q", q), ("k_cache", k_cache),
+                        ("v_cache", v_cache)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must start on 16 bytes")
 
 
 def decode_attention_plain(q, k_cache, v_cache, pos, *,
@@ -360,10 +446,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     _check_dense(q, k_cache, v_cache, pos, window)
     b, h, d = q.shape
     w, kv = k_cache.shape[1], k_cache.shape[2]
-    splits = _dense_splits(b, kv, w, _num_sms(q.device.index))
+    splits = dense_plan(q.dtype, b, kv, w, _num_sms(q.device.index))
     out = torch.empty_like(q)
     work = None
-    if splits > 1:  # partial softmax states of the key-range splits
+    if q.dtype == torch.float32 and splits > 1:  # the splits' partial states
         work = torch.empty(splits * b * h * (d + 2), dtype=torch.float32,
                            device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
