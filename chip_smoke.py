@@ -26,7 +26,14 @@ result line):
                GEMM x {f32, bf16, int8 weights} at Mixtral's widths
                (D=6144, F=16384, 8 experts, top-2) for a decode step of 4
                tokens and a 128-token prefill chunk, up and down, plus a
-               ragged smoke shape and an all -1 plan; the dense ring
+               ragged smoke shape, an all -1 plan, Mixtral's 4500-token
+               ring prefill and Jamba's experts (16, 4096 x 14336) at a
+               decode step, each through the body the host plan picks
+               (Mixtral's bf16 shapes also through the other body), each
+               also with the tile ids rotated by one expert (a planted
+               fault that must fail the limit); then the plan's readings:
+               the stream body's device time at 1-8 splits and both
+               bodies' at 8-1024 tokens; the dense ring
                decode kernel x {f32, bf16} at phi4-mini's (H=24, KV=8,
                D=128: a GQA group of 3), qwen2.5-3B's (16/2), internlm2's
                (16/8) and Mixtral's (48/8) head shapes: a 4096-slot ring
@@ -229,6 +236,9 @@ SOURCES = {
     "sparse_gather_sum": "src/repro_torch/kernels/csrc/sparse_gather.cu",
 }
 EPS32 = 1.1920929e-07
+# the kernels of csrc/grouped_gemm.cu as torch.profiler names them
+GROUPED_KERNELS = ("table_kernel", "stream_path::stream_kernel",
+                   "wgmma_path::wgmma_kernel", "fma_path::kernel")
 MIXTRAL_LAYERS = 4  # of 56: the bf16 weights of 4 layers fill ~21 GB
 JAMBA_LAYERS = 8  # of 32: one Jamba block, ~27 GB of bf16 weights
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
@@ -500,14 +510,13 @@ def kernel_case(kern, name: str, pages: str, *, t: int, d: int = 64,
     }
 
 
-def gemm_case(name: str, xdt: str, wdt: str, *, t: int, d: int, f: int,
-              e: int = 8, k: int = 2, bm: int = 8, all_pad: bool = False,
-              seed: int = 0):
-    """The grouped MoE GEMM at one shape of the serving path: t tokens
-    routed top-k over e experts, sorted and padded by the real dispatch
-    plan, times (e, d, f) weights. Returns its report dict."""
+def gemm_inputs(xdt: str, wdt: str, *, t: int, d: int, f: int, e: int = 8,
+                k: int = 2, bm: int = 8, seed: int = 0):
+    """Inputs of a grouped MoE GEMM case on the card: t tokens routed
+    top-k over e experts, sorted and padded by the real dispatch plan,
+    and (e, d, f) weights (int8 with per-expert scales). Returns x, w,
+    the tile ids, the scale (or None) and the plan's counts."""
     import torch
-    from repro_torch.kernels import moe_gemm, ref
     from repro_torch.models.moe import (grouped_dispatch_plan,
                                         grouped_permute)
 
@@ -520,9 +529,6 @@ def gemm_case(name: str, xdt: str, wdt: str, *, t: int, d: int, f: int,
     plan = grouped_dispatch_plan(gate_idx, n_experts=e, block_m=bm)
     x = grouped_permute(torch.randn((t, d), generator=g, device=dev), plan,
                         dtype)
-    gids = plan.block_experts
-    if all_pad:
-        gids = torch.full_like(gids, -1)
     scale = None
     if wdt == "int8":
         w = torch.randint(-127, 128, (e, d, f), generator=g, device=dev,
@@ -531,7 +537,33 @@ def gemm_case(name: str, xdt: str, wdt: str, *, t: int, d: int, f: int,
     else:
         w = (torch.randn((e, d, f), generator=g, device=dev)
              * d ** -0.5).to(dtype)
-    run = lambda: moe_gemm.grouped_matmul(x, w, gids, w_scale=scale)
+    return x, w, plan.block_experts, scale, plan.counts
+
+
+def gemm_case(name: str, xdt: str, wdt: str, *, t: int, d: int, f: int,
+              e: int = 8, k: int = 2, bm: int = 8, all_pad: bool = False,
+              seed: int = 0, body=None):
+    """The grouped MoE GEMM at one shape of the serving path: t tokens
+    routed top-k over e experts, sorted and padded by the real dispatch
+    plan, times (e, d, f) weights, through the body the host's plan picks
+    (``body``: the other bf16 body forced instead). Also the same call
+    with the tile ids rotated by one expert, a planted fault that must
+    fail the limit. Returns its report dict."""
+    import torch
+    from repro_torch.kernels import moe_gemm, ref
+
+    x, w, gids, scale, counts = gemm_inputs(xdt, wdt, t=t, d=d, f=f, e=e,
+                                            k=k, bm=bm, seed=seed)
+    if all_pad:
+        gids = torch.full_like(gids, -1)
+    plan = moe_gemm.grouped_plan(
+        x.dtype, w.dtype, x.shape[0], gids.numel(), d, f, e,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    if body is not None and body != plan.body:
+        plan = (moe_gemm.wgmma_plan() if body == "wgmma"
+                else moe_gemm.stream_plan(w.dtype))
+    run = lambda: moe_gemm.grouped_matmul(x, w, gids, w_scale=scale,
+                                          plan=plan)
     plain = lambda: ref.grouped_matmul_ref(x, w, gids, w_scale=scale)
     before = moe_gemm.launches["grouped_matmul"]
     got, want = run(), plain()
@@ -547,23 +579,35 @@ def gemm_case(name: str, xdt: str, wdt: str, *, t: int, d: int, f: int,
     tol = (3 * d ** 0.5 * EPS32 * big if xdt == "f32"
            else 2 ** -7 * big) + 1e-6
     if not bool(torch.isfinite(got.float()).all()) or err > tol:
-        raise AssertionError(f"{name} x={xdt} w={wdt} t={t} d={d} f={f}: "
-                             f"max_abs_err {err} > {tol}")
+        raise AssertionError(f"{name} x={xdt} w={wdt} t={t} d={d} f={f} "
+                             f"body={plan.body}: max_abs_err {err} > {tol}")
     if all_pad and big != 0.0:
         raise AssertionError(f"{name}: all -1 plan gave nonzero rows")
+    # a planted fault: the tile ids rotated by one expert
+    planted = None
+    if not all_pad:
+        bad = torch.where(gids >= 0, (gids + 1) % e, gids)
+        planted = float((moe_gemm.grouped_matmul(
+            x, w, bad, w_scale=scale, plan=plan).float()
+            - want.float()).abs().max())
+        if planted <= tol:
+            raise AssertionError(f"{name} t={t} d={d} f={f}: ids rotated "
+                                 f"by one expert pass the limit ({planted})")
+    del got, want
 
     # torch._grouped_mm on the same sorted rows (bf16 only): the library's
     # time for the same product; the port never calls it
     library = None
     if xdt == "bf16" and wdt == "bf16" and not all_pad:
-        ends = torch.cumsum(-(-plan.counts // bm) * bm, 0).to(torch.int32)
+        ends = torch.cumsum(-(-counts // bm) * bm, 0).to(torch.int32)
         library = lambda: torch._grouped_mm(x, w, offs=ends)
 
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=x.device)
     times = case_times(run, plain, library, flush)
 
     # least time: the rows of live tiles read once, the weights of every
-    # expert they route to read once, the output written once
+    # expert they route to read once, the output written once, and the
+    # products of the live rows at the card's peak
     live = gids >= 0
     rows = int(live.sum()) * bm
     experts = torch.unique(gids[live]).numel()
@@ -574,29 +618,56 @@ def gemm_case(name: str, xdt: str, wdt: str, *, t: int, d: int, f: int,
     flops = 2.0 * rows * d * f
     peak = PEAK_FLOPS["float32" if xdt == "f32" else "bfloat16"]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    # what this design reads: an expert's weights once per segment of up
-    # to MT rows (64 for bf16 rows, 32 for f32)
-    mt = 32 if xdt == "f32" else 64
-    seg = 0
-    ids = gids.tolist()
-    i = 0
-    while i < len(ids):
-        j = i
-        while j < len(ids) and ids[j] == ids[i]:
-            j += 1
-        if ids[i] >= 0:
-            per = max(1, mt // bm)
-            seg += -(-(j - i) // per) * max(1, -(-bm // mt))
-        i = j
+    # what this body reads from device memory at the least: an expert's
+    # weights once per chunk of its rows (64 rows: the stream body; 128:
+    # the wgmma body, whose blocks running at once share 8 chunks' weight
+    # panels in L2; 32: the f32 body)
+    chunks, _ = moe_gemm.chunk_table(gids.tolist(), bm, e, plan.chunk_rows)
+    reads = len(chunks)
+    if plan.body == "wgmma":
+        reads = sum(-(-sum(1 for c in chunks if c[2] == g) // 8)
+                    for g in range(e))
     return {
-        "name": name, "x": xdt, "w": wdt, "t": t, "d": d, "f": f,
-        "m": int(x.shape[0]), "experts": experts, "max_abs_err": err,
-        "max_abs_out": big, "tol": tol, **times,
+        "name": name, "x": xdt, "w": wdt, "t": t, "d": d, "f": f, "e": e,
+        "m": int(x.shape[0]), "experts": experts, "body": plan.body,
+        "splits": plan.splits, "forced": body is not None,
+        "grid": (None if plan.body == "fma"
+                 else moe_gemm.built_grid(plan, w.dtype)),
+        "max_abs_err": err, "max_abs_out": big, "tol": tol,
+        "planted_fault": planted, **times,
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "flops": flops,
-        "design_weight_bytes": seg * d * f * w.element_size(),
+        "design_weight_bytes": reads * d * f * w.element_size(),
     }
+
+
+def gemm_sweep(label: str, *, t: int, d: int, f: int, plans, e: int = 8,
+               wdt: str = "bf16") -> None:
+    """Device ms of the grouped GEMM (bf16 activations, ``wdt`` weights) at
+    one shape under each forced plan, every output within one bf16 step
+    of the plain version's: the readings behind moe_gemm.WGMMA_MIN_ROWS
+    and STREAM_ROUNDS."""
+    import torch
+    from repro_torch.kernels import moe_gemm, ref
+
+    x, w, gids, scale, _ = gemm_inputs("bf16", wdt, t=t, d=d, f=f, e=e)
+    want = ref.grouped_matmul_ref(x, w, gids, w_scale=scale).float()
+    tol = 2 ** -7 * float(want.abs().max()) + 1e-6
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=x.device)
+    readings = []
+    for plan in plans:
+        run = lambda: moe_gemm.grouped_matmul(x, w, gids, w_scale=scale,
+                                              plan=plan)
+        err = float((run().float() - want).abs().max())
+        if err > tol:
+            raise AssertionError(f"sweep {label} {plan}: max_abs_err {err} "
+                                 f"> {tol}")
+        readings.append(f"{plan.body}/{plan.splits}"
+                        f"({moe_gemm.built_grid(plan, w.dtype)} blocks)="
+                        f"{device_ms(run, flush):.4f}")
+    log(f"kernel grouped_matmul sweep {label} w={wdt} t={t} M={x.shape[0]} "
+        f"D={d} F={f}: device_ms {' '.join(readings)}")
 
 
 def matmul_case(in_dt: str, out_dt: str, m: int, k: int, n: int,
@@ -1295,6 +1366,13 @@ def profiled_serve(label, engine, params, reqs, wall=None) -> None:
            f", unprofiled wall of the same run {wall:.3f}s"))
     t0 = time.perf_counter()
     read_profile(prof, prof_wall)
+    grouped = [(name, us, count) for name, us, count in _device_rows(prof)
+               if any(k in name for k in GROUPED_KERNELS)]
+    if grouped:
+        log(f"profile[{label}]: grouped GEMM kernels "
+            f"{sum(us for _, us, _ in grouped) / 1e3:.3f} ms of device time: "
+            + "; ".join(f"{name[:60]} {us / 1e3:.3f} ms {count}x"
+                        for name, us, count in grouped))
     log(f"profile[{label}]: its events read in "
         f"{time.perf_counter() - t0:.1f}s of the host")
 
@@ -2564,14 +2642,47 @@ def main() -> int:
                            d=mix_f, f=mix_d))  # down projection, prefill
     gemms.append(gemm_case("grouped_matmul", "bf16", "bf16", t=4, d=mix_d,
                            f=mix_f, all_pad=True))
+    # Mixtral's ring prefill: a 4500-token prompt prefilled whole
+    for d, f in ((mix_d, mix_f), (mix_f, mix_d)):
+        gemms.append(gemm_case("grouped_matmul", "bf16", "bf16", t=4500,
+                               d=d, f=f))
+    # Jamba's experts (16, top-2, 4096 x 14336) at a decode step of 4
+    for d, f in ((4096, 14336), (14336, 4096)):
+        gemms.append(gemm_case("grouped_matmul", "bf16", "bf16", t=4, d=d,
+                               f=f, e=16))
+    # Mixtral's bf16 shapes through the body the plan does not pick
+    for t in (4, 128, 4500):
+        for d, f in ((mix_d, mix_f), (mix_f, mix_d)):
+            chosen = [v for v in gemms if v["x"] == v["w"] == "bf16"
+                      and v["t"] == t and v["d"] == d and v["e"] == 8][0]
+            gemms.append(gemm_case(
+                "grouped_matmul", "bf16", "bf16", t=t, d=d, f=f,
+                body="wgmma" if chosen["body"] == "stream" else "stream"))
     for v in gemms:
         log(f"kernel grouped_matmul x={v['x']} w={v['w']} t={v['t']} "
-            f"M={v['m']} D={v['d']} F={v['f']} experts={v['experts']}: "
+            f"M={v['m']} D={v['d']} F={v['f']} E={v['e']} "
+            f"experts={v['experts']} body={v['body']} splits={v['splits']} "
+            f"grid={v['grid']}"
+            f"{' (forced)' if v['forced'] else ''}: "
             f"max_abs_err={v['max_abs_err']:.3e} (tol {v['tol']:.3e}, max "
-            f"|out| {v['max_abs_out']:.3e}) {times_text(v)} "
+            f"|out| {v['max_abs_out']:.3e}) planted_fault(ids rotated)="
+            f"{v['planted_fault']} {times_text(v)} "
             f"bound_ms={v['bound_ms']:.4f} ({v['bound_by']}) "
             f"bytes={v['bytes']:.4g} design_weight_bytes="
             f"{v['design_weight_bytes']:.4g}")
+    # the readings behind the plan: the stream body's splits at decode and
+    # chunk shapes, and both bodies from 8 to 1024 tokens
+    stream = lambda s, wd=torch.bfloat16: moe_gemm.stream_plan(wd, s)
+    wgmma = moe_gemm.wgmma_plan()
+    for d, f in ((mix_d, mix_f), (mix_f, mix_d)):
+        gemm_sweep("splits", t=4, d=d, f=f,
+                   plans=[stream(s) for s in (1, 2, 4, 8)])
+        for t in (4, 128):
+            gemm_sweep("splits", t=t, d=d, f=f, wdt="int8",
+                       plans=[stream(s, torch.int8) for s in (1, 2, 4, 8)])
+    for t in (8, 16, 32, 64, 256, 1024):
+        gemm_sweep("bodies", t=t, d=mix_d, f=mix_f,
+                   plans=[stream(1), stream(2), wgmma])
     flashes = [flash_case(dt, **kw)
                for dt in ("bf16", "f32")
                for kw in ({}, {"window": 512}, {"causal": False},
@@ -2720,9 +2831,10 @@ def main() -> int:
             mine = gemms
             rep = [v for v in mine if v["x"] == "bf16" and v["w"] == "bf16"
                    and v["t"] == 4 and v["d"] == mix_d][0]
-            keys = ("x", "w", "t", "m", "d", "f", "experts", "max_abs_err",
-                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                    "design_weight_bytes")
+            keys = ("x", "w", "t", "m", "d", "f", "e", "experts", "body",
+                    "splits", "forced", "max_abs_err", "tol",
+                    "planted_fault", "ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by", "design_weight_bytes")
         else:
             mine = [v for v in variants if v["name"] == kname]
             rep = [v for v in mine if v["pages"] == "bf16" and v["h"] == 48
