@@ -84,7 +84,8 @@ result line):
                dense backend: 8 requests of 64-1024 prompt tokens front-
                padded to power-of-two buckets, 32 new each, through the
                chunked WKV kernel (launches = 24 x (prefills + decode
-               steps)), two of them under torch.profiler, then
+               steps)), two of them under torch.profiler (the WKV
+               kernels' device time logged by name), then
                generate_pertoken; then f32 at full depth (TF32 off), greedy
                tokens through the kernel equal to the plain path's on run
                and generate_pertoken (97-token prompts: WKV chunk 1); then
@@ -165,10 +166,17 @@ The kernels phase also holds the chunked RWKV-6 WKV kernel against its
 plain version (f32, the model's only WKV dtype) at rwkv6's heads (32 x
 64): a 1024-token bucketed prefill, a batch of 16-token spans from a
 nonzero state, chunks 8 and 13, the decode shape (B 4, S 1), the smoke
-width hd 16 and a front-padded row whose outputs and state must stay
-exactly 0; out and the final state within WKV_LIMIT of the case's largest
-|value|, the kernel without the current-token bonus (a planted fault)
-failing it.
+width hd 16, a front-padded row whose outputs and state must stay
+exactly 0, generate_pertoken's 97-token prompt at chunk 1, chunk 10 at
+200 tokens and a 256-token span from a nonzero state run in place (the
+same bits as out of place); out and the final state within WKV_LIMIT of
+the case's largest |value|, the kernel without the current-token bonus
+and the output pass started one group behind (planted faults; the second
+a no-op where the plan has one group) failing it. Each case logs the
+plan's body (wkv_plan: state pass + scan + output pass, one pass, or
+decode), G and blocks; two sweeps time the split body at every G and
+each of its three kernels (the 1024-token prefill, up to one group of all
+64 chunks, and the 97-token prompt at chunk 1).
 The kernels phase also holds the embedding-bag kernel against its plain
 version, f32 and bf16 tables: the DLRM example's three tables (5000 x 32,
 20000 x 32, 200 x 16; N 256, bag 4), the JAX tests' shapes, a ragged D,
@@ -197,6 +205,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -239,6 +248,9 @@ EPS32 = 1.1920929e-07
 # the kernels of csrc/grouped_gemm.cu as torch.profiler names them
 GROUPED_KERNELS = ("table_kernel", "stream_path::stream_kernel",
                    "wgmma_path::wgmma_kernel", "fma_path::kernel")
+# the kernels of csrc/rwkv_wkv.cu as torch.profiler names them
+WKV_KERNELS = ("wkv_state_pass", "wkv_state_scan", "wkv_output_pass",
+               "wkv_onepass", "wkv_decode")
 MIXTRAL_LAYERS = 4  # of 56: the bf16 weights of 4 layers fill ~21 GB
 JAMBA_LAYERS = 8  # of 32: one Jamba block, ~27 GB of bf16 weights
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
@@ -944,19 +956,31 @@ def dense_case(label: str, dtype: str, h: int, kv: int, d: int, w: int,
     }
 
 
-# (label, B, S, H, hd, chunk, nonzero s0, front pad): rwkv6-1.6B's heads
-# (32 x 64) at a bucketed 1024-token prefill from a zero state, a batch of
-# 16-token spans, chunks of 8 and 13 (fit_chunk of S 8 and 13), the decode
-# shape (B 4, S 1, chunk 1), the smoke width hd 16, and a row front-padded
-# with zeros for its first half
+# (label, B, S, H, hd, chunk, nonzero s0, front pad, in place): rwkv6-1.6B's
+# heads (32 x 64) at a bucketed 1024-token prefill from a zero state, a
+# batch of 16-token spans, chunks of 8 and 13 (fit_chunk of S 8 and 13), the
+# decode shape (B 4, S 1, chunk 1), the smoke width hd 16, a row
+# front-padded with zeros for its first half, generate_pertoken's 97-token
+# prompt (prime: chunk 1), chunk 10 at 200 tokens (20 chunks in groups of
+# 6), and a batch of 256-token spans from a nonzero state whose final state
+# is written over it (the serving cache row)
 WKV_CASES = (
-    ("prefill_1024", 1, 1024, 32, 64, 16, False, False),
-    ("batch4_s16", 4, 16, 32, 64, 16, True, False),
-    ("s8_chunk8", 4, 8, 32, 64, 8, True, False),
-    ("s13_chunk13", 4, 13, 32, 64, 13, True, False),
-    ("decode", 4, 1, 32, 64, 1, True, False),
-    ("smoke_hd16", 2, 48, 4, 16, 16, True, False),
-    ("front_pad", 1, 256, 32, 64, 16, False, True),
+    ("prefill_1024", 1, 1024, 32, 64, 16, False, False, False),
+    ("batch4_s16", 4, 16, 32, 64, 16, True, False, False),
+    ("s8_chunk8", 4, 8, 32, 64, 8, True, False, False),
+    ("s13_chunk13", 4, 13, 32, 64, 13, True, False, False),
+    ("decode", 4, 1, 32, 64, 1, True, False, False),
+    ("smoke_hd16", 2, 48, 4, 16, 16, True, False, False),
+    ("front_pad", 1, 256, 32, 64, 16, False, True, False),
+    ("s97_chunk1", 1, 97, 32, 64, 1, True, False, False),
+    ("s200_chunk10", 1, 200, 32, 64, 10, True, False, False),
+    ("span256_in_place", 4, 256, 32, 64, 16, True, False, True),
+)
+# the split body at every G: (label, B, S, H, hd, chunk, groups); G 64 at
+# 1024 tokens is one group, a block a head walking all 64 chunks in series
+WKV_SWEEPS = (
+    ("prefill_1024", 1, 1024, 32, 64, 16, (1, 2, 4, 8, 16, 64)),
+    ("s97_chunk1", 1, 97, 32, 64, 1, (4, 8, 16, 32, 64)),
 )
 # the WKV's limit, of the case's largest |want| (at least 1): f32 sums in
 # another order, and the cumulative log decay's rounding, which the
@@ -964,16 +988,9 @@ WKV_CASES = (
 WKV_LIMIT = 1e-5
 
 
-def wkv_case(label: str, b: int, s: int, h: int, hd: int, chunk: int,
-             with_s0: bool, front_pad: bool, seed: int = 0):
-    """The chunked WKV kernel at one shape: max error of out and of the
-    final state against the plain version (within WKV_LIMIT of the case's
-    largest |want|), the reading of the kernel without the current-token
-    bonus, which must fail the limit, times of both, and the bound. No
-    single PyTorch call computes this recurrence: library_ms is None."""
+def _wkv_inputs(b: int, s: int, h: int, hd: int, with_s0: bool,
+                front_pad: bool, seed: int = 0):
     import torch
-    from repro_torch.kernels import rwkv_scan
-
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
@@ -987,6 +1004,32 @@ def wkv_case(label: str, b: int, s: int, h: int, hd: int, chunk: int,
     if front_pad:  # a zeroed pad prefix, as a bucketed prefill feeds it
         for x in (r, k, v):
             x[:, :s // 2] = 0.0
+    return r, k, v, lw, u, s0
+
+
+def _wkv_blocks(plan) -> int:
+    """Blocks a call of ``plan`` launches, its kernels together (the split
+    body's state pass has the output pass's grid)."""
+    blocks = math.prod(plan.grid) * (2 if plan.body == "split" else 1)
+    return blocks + (math.prod(plan.scan_grid) if plan.scan_grid else 0)
+
+
+def wkv_case(label: str, b: int, s: int, h: int, hd: int, chunk: int,
+             with_s0: bool, front_pad: bool, in_place: bool, seed: int = 0):
+    """The chunked WKV kernel at one shape, through the body wkv_plan picks:
+    max error of out and of the final state against the plain version
+    (within WKV_LIMIT of the case's largest |want|), the readings of two
+    planted faults that must fail the limit (no current-token bonus; the
+    output pass started one group behind, a no-op with one group), times,
+    and the bound. ``in_place``: the final state is written over the
+    initial one, which must give the out-of-place call's bits, and that is
+    the call timed. No single PyTorch call computes this recurrence:
+    library_ms is None."""
+    import torch
+    from repro_torch.kernels import rwkv_scan
+
+    r, k, v, lw, u, s0 = _wkv_inputs(b, s, h, hd, with_s0, front_pad, seed)
+    plan = rwkv_scan.wkv_plan(b, s, h, hd, chunk)
     run = lambda: rwkv_scan.rwkv_wkv(r, k, v, lw, u, s0, chunk=chunk)
     plain = lambda: rwkv_scan.chunked_wkv_plain(r, k, v, lw, u, s0,
                                                 chunk=chunk)
@@ -1006,19 +1049,38 @@ def wkv_case(label: str, b: int, s: int, h: int, hd: int, chunk: int,
             or not bool(torch.isfinite(got_s).all()) or err > limit):
         raise AssertionError(f"rwkv_wkv {label}: max_abs_err {err} > "
                              f"{limit}")
+    if in_place:  # the final state over the initial one: the same bits
+        state = s0.clone()
+        out_ip, s_ip = rwkv_scan.rwkv_wkv(r, k, v, lw, u, state,
+                                          chunk=chunk, state_out=state)
+        if (s_ip is not state or not torch.equal(out_ip, got)
+                or not torch.equal(state, got_s)):
+            raise AssertionError(f"rwkv_wkv {label}: in place differs from "
+                                 f"out of place")
+        run = lambda: rwkv_scan.rwkv_wkv(r, k, v, lw, u, state, chunk=chunk,
+                                         state_out=state)
     bad, _ = rwkv_scan.rwkv_wkv(r, k, v, lw, u, s0, chunk=chunk,
                                 skip_bonus=True)
     planted = reading(bad, want)
     if planted <= limit:
         raise AssertionError(f"rwkv_wkv {label}: the kernel without the "
                              f"bonus passes the limit ({planted})")
+    stale, _ = rwkv_scan.rwkv_wkv(r, k, v, lw, u, s0, chunk=chunk,
+                                  stale_state=True)
+    stale_fault = reading(stale, want)
+    if plan.n_groups > 1 and stale_fault <= limit:
+        raise AssertionError(f"rwkv_wkv {label}: the output pass one group "
+                             f"behind passes the limit ({stale_fault})")
+    if plan.n_groups == 1 and not torch.equal(stale, got):
+        raise AssertionError(f"rwkv_wkv {label}: stale_state changed a "
+                             f"one-group call")
     if front_pad:  # out and the state exactly 0 through the pad prefix
         half = [x[:, :s // 2].contiguous() for x in (r, k, v, lw)]
         _, head_s = rwkv_scan.rwkv_wkv(*half, u, chunk=chunk)
         if bool((got[:, :s // 2] != 0).any()) or bool((head_s != 0).any()):
             raise AssertionError(f"rwkv_wkv {label}: a zero pad prefix "
                                  f"left nonzero outputs or state")
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     times = case_times(run, plain, None, flush, plain_iters=5)
     # least time: r, k, v, logw read once and out written once, u and the
     # initial state read once, the final state written once; f32 flops
@@ -1031,12 +1093,56 @@ def wkv_case(label: str, b: int, s: int, h: int, hd: int, chunk: int,
     return {
         "name": "rwkv_wkv", "label": label, "b": b, "s": s, "h": h,
         "hd": hd, "chunk": chunk, "s0": with_s0, "front_pad": front_pad,
+        "in_place": in_place, "body": plan.body, "group": plan.group,
+        "n_groups": plan.n_groups,
+        "blocks": _wkv_blocks(plan),
         "max_abs_err": err, "limit": limit, "planted_fault": planted,
-        **times,
+        "stale_fault": stale_fault, **times,
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "flops": flops,
     }
+
+
+def wkv_sweep(label: str, b: int, s: int, h: int, hd: int, chunk: int,
+              groups) -> None:
+    """Device ms of the split body forced at each G, each held to
+    WKV_LIMIT, beside the plan's own choice, with each of its kernels'
+    device ms a call (state pass, scan, output pass) from one profile: the
+    measurement behind rwkv_scan.MAX_GROUP and the rule of wkv_plan."""
+    import torch
+    from repro_torch.kernels import rwkv_scan
+
+    r, k, v, lw, u, s0 = _wkv_inputs(b, s, h, hd, True, False, seed=3)
+    want, want_s = rwkv_scan.chunked_wkv_plain(r, k, v, lw, u, s0,
+                                               chunk=chunk)
+    limit = WKV_LIMIT * max(1.0, float(want.abs().max()),
+                            float(want_s.abs().max()))
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    planned = rwkv_scan.wkv_plan(b, s, h, hd, chunk)
+    readings = []
+    for g in groups:
+        plan = rwkv_scan.make_plan("split", b, s, h, hd, chunk, group=g)
+        fn = lambda: rwkv_scan.rwkv_wkv(r, k, v, lw, u, s0, chunk=chunk,
+                                        plan=plan)
+        got, got_s = fn()
+        err = max(float((got - want).abs().max()),
+                  float((got_s - want_s).abs().max()))
+        if err > limit:
+            raise AssertionError(f"wkv sweep {label} G={g}: max_abs_err "
+                                 f"{err} > {limit}")
+        parts = []
+        rows = _profiled(fn, flush, 20)
+        for kernel in WKV_KERNELS:  # its mean a launch, once a call
+            mine = [(us, n) for name, us, n in rows if kernel in name]
+            if mine:
+                ms = sum(us / n for us, n in mine) / 1e3
+                parts.append(f"{kernel} {ms:.4f}")
+        readings.append(f"G={g} ({plan.n_groups} groups) "
+                        f"{device_ms(fn, flush):.4f} ({'; '.join(parts)})")
+    log(f"kernel rwkv_wkv sweep {label} b={b} s={s} h={h} hd={hd} "
+        f"chunk={chunk}, device ms of the split body: " + "; ".join(readings)
+        + f"; the plan takes {planned.body} G={planned.group}")
 
 
 # (label, V, D, N, bag, kind): the DLRM example's three tables (N 256, bag
@@ -1366,13 +1472,16 @@ def profiled_serve(label, engine, params, reqs, wall=None) -> None:
            f", unprofiled wall of the same run {wall:.3f}s"))
     t0 = time.perf_counter()
     read_profile(prof, prof_wall)
-    grouped = [(name, us, count) for name, us, count in _device_rows(prof)
-               if any(k in name for k in GROUPED_KERNELS)]
-    if grouped:
-        log(f"profile[{label}]: grouped GEMM kernels "
-            f"{sum(us for _, us, _ in grouped) / 1e3:.3f} ms of device time: "
-            + "; ".join(f"{name[:60]} {us / 1e3:.3f} ms {count}x"
-                        for name, us, count in grouped))
+    rows = list(_device_rows(prof))
+    for what, names in (("grouped GEMM", GROUPED_KERNELS),
+                        ("WKV", WKV_KERNELS)):
+        mine = [(name, us, count) for name, us, count in rows
+                if any(k in name for k in names)]
+        if mine:
+            log(f"profile[{label}]: {what} kernels "
+                f"{sum(us for _, us, _ in mine) / 1e3:.3f} ms of device "
+                f"time: " + "; ".join(f"{name[:60]} {us / 1e3:.3f} ms "
+                                      f"{count}x" for name, us, count in mine))
     log(f"profile[{label}]: its events read in "
         f"{time.perf_counter() - t0:.1f}s of the host")
 
@@ -2733,11 +2842,17 @@ def main() -> int:
     wkvs = [wkv_case(*case) for case in WKV_CASES]
     for v in wkvs:
         log(f"kernel rwkv_wkv {v['label']} b={v['b']} s={v['s']} h={v['h']} "
-            f"hd={v['hd']} chunk={v['chunk']} s0={v['s0']}: "
+            f"hd={v['hd']} chunk={v['chunk']} s0={v['s0']} "
+            f"in_place={v['in_place']}: plan {v['body']} G={v['group']} "
+            f"groups={v['n_groups']} "
+            f"blocks={v['blocks']}: "
             f"max_abs_err={v['max_abs_err']:.3e} (limit {v['limit']:.3e}) "
             f"planted_fault(no bonus)={v['planted_fault']:.3e} "
+            f"planted_fault(one group behind)={v['stale_fault']:.3e} "
             f"{times_text(v)} (no PyTorch call computes the recurrence) "
             f"bound_ms={v['bound_ms']:.5f} ({v['bound_by']})")
+    for sweep in WKV_SWEEPS:
+        wkv_sweep(*sweep)
     gathers = [gather_case(label, dt, v_, d_, n_, bag, kind)
                for label, v_, d_, n_, bag, kind in GATHER_CASES
                for dt in ("f32", "bf16")]
@@ -2816,8 +2931,10 @@ def main() -> int:
             mine = wkvs
             rep = wkvs[0]
             keys = ("label", "b", "s", "h", "hd", "chunk", "s0",
-                    "front_pad", "max_abs_err", "limit", "planted_fault",
-                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+                    "front_pad", "in_place", "body", "group", "n_groups",
+                    "blocks", "max_abs_err", "limit",
+                    "planted_fault", "stale_fault", "ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by")
         elif kname == "sparse_gather_sum":
             main_path = counts["dlrm"]
             mine = gathers
