@@ -196,7 +196,19 @@ Each serve or train run sets every launch counter to 0 just before it and
 reads them just after; a kernel of that path launched no time fails the
 run. On the bf16 paged serves (qwen2-0.5B, Mixtral, Qwen2-VL) the span
 launches must equal layers x span calls, every one through the span
-kernel's source.
+kernel's source, and the one-token decode launches must go through
+csrc/paged_decode_attention.cu; their serve profiles log the paged decode
+kernels' device time by name.
+The kernels phase also holds the bf16 paged one-token decode body
+(csrc/paged_decode_attention.cu: one launch, a row's key-range splits
+merged in a cluster) at every bf16 and int8 decode case above and at
+Qwen2-VL-7B's heads (B 4, 28/4 x 128, contexts 132-632), at the 131,072-
+token row over 8-slot pages and at a floor case (B 8 at qwen's heads,
+every context 16): each logs its source, splits and stages, runs the two
+planted faults (each rank skipping its last stage; the merge leaving out
+the last rank holding keys, a bitwise no-op where no row's keys span two
+ranks), the device time of paged_attention.cu's wmma body on the same
+inputs (the body the decode took before) and a sweep of the splits.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -237,7 +249,7 @@ SOURCES = {
     "matmul": "src/repro_torch/kernels/csrc/matmul.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "paged_decode_attention":
-        "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
     "paged_decode_span_attention":
         "src/repro_torch/kernels/csrc/paged_span_attention.cu",
     "grouped_matmul": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
@@ -248,6 +260,11 @@ EPS32 = 1.1920929e-07
 # the kernels of csrc/grouped_gemm.cu as torch.profiler names them
 GROUPED_KERNELS = ("table_kernel", "stream_path::stream_kernel",
                    "wgmma_path::wgmma_kernel", "fma_path::kernel")
+# the paged one-token decode's kernels as torch.profiler names them: the
+# bf16 body of csrc/paged_decode_attention.cu, and paged_attention.cu's
+# bodies and its merge kernel (the decode's route before it)
+PAGED_DECODE_KERNELS = ("paged_decode_kernel", "paged_attention_mma_kernel",
+                        "paged_attention_kernel", "combine_kernel<")
 # the kernels of csrc/rwkv_wkv.cu as torch.profiler names them
 WKV_KERNELS = ("wkv_state_pass", "wkv_state_scan", "wkv_output_pass",
                "wkv_onepass", "wkv_decode")
@@ -443,11 +460,14 @@ def kernel_case(kern, name: str, pages: str, *, t: int, d: int = 64,
     dev = q.device
     if name == "paged_decode_attention":
         qk = q[:, 0]
-        run = lambda: kern.paged_decode_attention(
-            qk, k, v, table, pos, k_scale=ks, v_scale=vs, window=window)
+        decode = lambda **kw: kern.paged_decode_attention(
+            qk, k, v, table, pos, k_scale=ks, v_scale=vs, window=window,
+            **kw)
+        run = decode
         plain = lambda: kern.paged_decode_attention_plain(
             qk, k, v, table, pos, k_scale=ks, v_scale=vs, window=window)
-        source = kern.SOURCE
+        source = kern.decode_source(q.dtype, k.dtype, d, h // kv)
+        by_source = kern.decode_launches
     else:
         span = lambda w: kern.paged_decode_span_attention(
             q, k, v, table, pos, k_scale=ks, v_scale=vs, window=w)
@@ -455,11 +475,11 @@ def kernel_case(kern, name: str, pages: str, *, t: int, d: int = 64,
         plain = lambda: kern.paged_decode_span_attention_plain(
             q, k, v, table, pos, k_scale=ks, v_scale=vs, window=window)
         source = kern.span_source(q.dtype, k.dtype, d)
-    before = dict(kern.span_launches)
+        by_source = kern.span_launches
+    before = dict(by_source)
     got, want = run(), plain()
     torch.cuda.synchronize()
-    if (name != "paged_decode_attention"
-            and kern.span_launches[source] != before[source] + 1):
+    if by_source[source] != before[source] + 1:
         raise AssertionError(f"{name} {pages}: the launch did not go "
                              f"through {source}")
     err = float((got.float() - want.float()).abs().max())
@@ -479,6 +499,11 @@ def kernel_case(kern, name: str, pages: str, *, t: int, d: int = 64,
             raise AssertionError(f"{name} {pages} t={t} h={h}: window {w} "
                                  f"instead of {window} passes the row "
                                  f"limit ({reading})")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    body = {}
+    if source == kern.PAGED_DECODE_SOURCE:
+        body = decode_body(kern, x, window, decode, got, want, pages, flush)
+        planted = body.pop("planted_fault")
 
     # SDPA on the gathered view: the library's time for the same function
     kg = ref.paged_gather_dequant_ref(k, table, ks, dtype)
@@ -495,7 +520,6 @@ def kernel_case(kern, name: str, pages: str, *, t: int, d: int = 64,
     library = lambda: F.scaled_dot_product_attention(qh, kh, vh,
                                                      attn_mask=mask)
 
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     times = case_times(run, plain, library, flush)
 
     # least time for this work: every valid key read once, q read once,
@@ -515,11 +539,74 @@ def kernel_case(kern, name: str, pages: str, *, t: int, d: int = 64,
         "name": name, "pages": pages, "t": t, "b": b, "h": h, "kv": kv,
         "d": d, "window": window, "max_ctx": max_ctx,
         "trimmed_pages": trimmed, "source": source, "max_abs_err": err,
-        "row_steps": steps, "planted_fault": planted, **times,
+        "row_steps": steps, "planted_fault": planted, **body, **times,
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "flops": flops,
     }
+
+
+def decode_body(kern, x, window, decode, got, want, pages, flush):
+    """The bf16 paged decode body at one kernel case: its plan (splits,
+    stages, shared memory); besides TOL, its output within one bf16 step
+    of each row's largest |value| (bf16_steps, the dense decode's limit);
+    both planted faults, each of which must fail TOL or that row limit
+    where it applies (drop_stage: each rank skips its last stage, 1/256 of
+    the keys at the 131,072-token row, which only the row limit sees;
+    merge_short: the merge leaves out the last rank holding keys, which
+    must be a bitwise no-op where no row's keys span two ranks); the
+    device time of paged_attention.cu's wmma body on the same inputs (the
+    body this decode took before; held to TOL too) and of the body at
+    each split count. Returns the readings for the case's report."""
+    import torch
+    q, k, v, ks, vs = x["q"], x["k"], x["v"], x["ks"], x["vs"]
+    table, pos = x["table"], x["pos"]
+    b, h, kv, d = x["b"], x["h"], x["kv"], x["d"]
+    p, m = k.shape[1], table.shape[1]
+    plan = kern.paged_decode_plan(b, kv, h // kv, d, p, m, kern._num_sms(
+        torch.cuda.current_device()), k.dtype)
+    what = f"paged decode {pages} b={b} h={h}/{kv} d={d} window={window}"
+    steps = bf16_steps(got, want)
+    if steps > 1.0:
+        raise AssertionError(f"{what}: {steps} bf16 steps of a row's "
+                             f"largest |value| (limit 1)")
+    # (max_abs_err, bf16 steps) of a planted fault's output
+    reading = lambda y: (float((y.float() - want.float()).abs().max()),
+                         bf16_steps(y, want))
+    fails = lambda r: r[0] > TOL[pages] or r[1] > 1.0
+    drop = reading(decode(drop_stage=True))
+    if not fails(drop):
+        raise AssertionError(f"{what}: every rank skipping its last stage "
+                             f"passes TOL and the row limit {drop}")
+    spans = [sum(1 for part in kern.paged_split_slots(
+        c, p, m, window, plan.splits) if part) for c in pos.tolist()]
+    short = decode(merge_short=True)
+    if max(spans) >= 2:
+        merge = reading(short)
+        if not fails(merge):
+            raise AssertionError(f"{what}: the merge without its last "
+                                 f"rank passes TOL and the row limit "
+                                 f"{merge}")
+    elif torch.equal(short, got):
+        merge = "no-op"
+    else:
+        raise AssertionError(f"{what}: merge_short changed a call whose "
+                             f"rows each lie in one rank")
+    old = lambda: kern._launch(q[:, 0, None], k, v, table, pos, ks, vs,
+                               window, pos_offset=-1)[:, 0]
+    old_err = reading(old())[0]
+    if not old_err <= TOL[pages]:
+        raise AssertionError(f"{what}: the wmma body of {kern.SOURCE} "
+                             f"reads {old_err}")
+    sweep = {s: device_ms(lambda: decode(splits=s), flush)
+             for s in (1, 2, 4, 8) if s <= -(-m * p // kern.PAGED_KEYS)}
+    out = {"splits": plan.splits, "stages": plan.stages,
+           "smem": plan.smem, "ranks_with_keys": spans, "bf16_steps": steps,
+           "planted_fault": {"drop_stage": drop, "merge_short": merge},
+           "wmma_device_ms": device_ms(old, flush),
+           "wmma_max_abs_err": old_err, "splits_device_ms": sweep}
+    log(f"  {what}: {out}")
+    return out
 
 
 def gemm_inputs(xdt: str, wdt: str, *, t: int, d: int, f: int, e: int = 8,
@@ -1381,8 +1468,14 @@ def dense_decode_launches(label, engine, counts, n_layers) -> None:
 def span_route_launches(label, engine, counts, n_layers) -> None:
     """A bf16 paged serve: every span call (chunked and suffix prefill
     and, with draft_k, each verify step) launches the span kernel once per
-    layer, and every launch goes through the span kernel's source."""
+    layer, and every launch goes through the span kernel's source; every
+    one-token decode launch goes through the bf16 decode body's."""
     from repro_torch.kernels import decode_attention as kern
+    n_dec = counts["paged_decode_attention"]
+    if kern.decode_launches[kern.PAGED_DECODE_SOURCE] != n_dec:
+        raise AssertionError(f"{label}: decode launches {n_dec} (through "
+                             f"{kern.decode_launches}), not all through "
+                             f"{kern.PAGED_DECODE_SOURCE}")
     calls = engine.counters["prefill_span_calls"]
     if engine.draft_k:
         calls += engine.counters["decode_steps"]
@@ -1394,7 +1487,8 @@ def span_route_launches(label, engine, counts, n_layers) -> None:
                              f"{calls} span calls, all through "
                              f"{kern.SPAN_SOURCE}")
     log(f"  span launches {n} = {n_layers} x {calls} span calls, all "
-        f"through {kern.SPAN_SOURCE}")
+        f"through {kern.SPAN_SOURCE}; decode launches {n_dec}, all "
+        f"through {kern.PAGED_DECODE_SOURCE}")
 
 
 def serve_run(label, mods, engine, params, reqs, vocab, need):
@@ -1474,7 +1568,8 @@ def profiled_serve(label, engine, params, reqs, wall=None) -> None:
     read_profile(prof, prof_wall)
     rows = list(_device_rows(prof))
     for what, names in (("grouped GEMM", GROUPED_KERNELS),
-                        ("WKV", WKV_KERNELS)):
+                        ("WKV", WKV_KERNELS),
+                        ("paged decode", PAGED_DECODE_KERNELS)):
         mine = [(name, us, count) for name, us, count in rows
                 if any(k in name for k in names)]
         if mine:
@@ -1564,7 +1659,7 @@ def serve_qwen(mods):
     params = init_params(api.model_specs(cfg), seed=0,
                          dtype=torch.bfloat16, device="cuda")
     paged = ("paged_decode_attention", "paged_decode_span_attention")
-    counts = None
+    counts, wall = None, None
     for label, cache, draft_k, need in (
             ("qwen_bf16", None, 0, paged),
             # greedy speculation verifies every step through the span
@@ -1575,11 +1670,16 @@ def serve_qwen(mods):
                            decode_cache_dtype=cache, device="cuda")
         engine = ServeEngine(cfg, ctx, window=640, max_batch=4, chunk=8,
                              page_size=16, draft_k=draft_k)
-        _, c, _ = serve_run(label, mods, engine, params,
+        _, c, w = serve_run(label, mods, engine, params,
                             serve_requests(cfg.vocab_size, seed=0),
                             cfg.vocab_size, need)
         span_route_launches(label, engine, c, cfg.n_layers)
-        counts = counts or c
+        if counts is None:
+            counts, wall = c, w
+    ctx = ModelContext(compute_dtype=torch.bfloat16, device="cuda")
+    profiled_serve("qwen_bf16", ServeEngine(
+        cfg, ctx, window=640, max_batch=4, chunk=8, page_size=16), params,
+        serve_requests(cfg.vocab_size, seed=0), wall)
     del params
     torch.cuda.empty_cache()
 
@@ -2655,7 +2755,7 @@ def main() -> int:
                 continue
             if ("registers" in line or "spill" in line
                     or (src in (kern.SPAN_SOURCE, flash.SOURCE, mm.SOURCE,
-                                kern.DENSE_SOURCE)
+                                kern.DENSE_SOURCE, kern.PAGED_DECODE_SOURCE)
                         and ("entry function" in line
                              or "serialized" in line))):
                 log(f"  ptxas: {line.strip()}")
@@ -2687,6 +2787,19 @@ def main() -> int:
         log(f"  dense decode bf16 body tile width {dp}: {keys} keys a "
             f"stage, {stages} stages, {smem} bytes of shared memory per "
             f"block, at most {splits} splits (one cluster) a row")
+
+    for pdt in (torch.bfloat16, torch.int8):
+        for dp in (16, 32, 64, 128, 256):
+            keys, stages, splits, smem = kern.built_paged_ring(pdt, dp)
+            if (stages, smem) != kern.paged_decode_ring(
+                    dp, pdt == torch.int8):
+                raise AssertionError(f"paged decode body {pdt} at tile "
+                                     f"width {dp}: built ({stages}, {smem})"
+                                     f" differs from paged_decode_plan's")
+            log(f"  paged decode bf16 body, {str(pdt).split('.')[-1]} "
+                f"pages, tile width {dp}: {keys} keys a stage, {stages} "
+                f"stages, {smem} bytes of shared memory per block, at most "
+                f"{splits} splits (one cluster) a row")
 
     # 3. kernels against their plain versions at serving shapes
     variants = []
@@ -2728,13 +2841,32 @@ def main() -> int:
     for pages in ("bf16", "int8"):
         variants.append(kernel_case(kern, "paged_decode_span_attention",
                                     pages, t=16, **wide_attn))
+    # one-token decodes at Qwen2-VL-7B's heads (28/4 x 128), at the wide
+    # row and at the floor: B 8 at qwen's heads, every context 16 (one
+    # stage a row: the body's fixed latency)
+    vl_attn = dict(b=4, h=28, kv=4, d=128, ctxs=(132, 356, 512, 632))
+    for shape in (vl_attn, wide_attn):
+        for pages in ("bf16", "int8"):
+            variants.append(kernel_case(kern, "paged_decode_attention",
+                                        pages, t=1, **shape))
+    variants.append(kernel_case(kern, "paged_decode_attention", "bf16",
+                                t=1, ctxs=(16,) * 8))
     for v in variants:
+        body = ""
+        if "splits" in v:
+            sweep = " ".join(f"{s}={ms:.4f}" for s, ms
+                             in v["splits_device_ms"].items())
+            body = (f"splits={v['splits']} stages={v['stages']} smem="
+                    f"{v['smem']} ranks_with_keys={v['ranks_with_keys']} "
+                    f"wmma_device_ms={v['wmma_device_ms']:.4f} (wmma "
+                    f"max_abs_err {v['wmma_max_abs_err']:.3e}) "
+                    f"splits_device_ms {sweep} ")
         log(f"kernel {v['name']} pages={v['pages']} t={v['t']} b={v['b']} "
             f"h={v['h']}/{v['kv']} d={v['d']} window={v['window']} "
             f"max_ctx={v['max_ctx']} trimmed_pages={v['trimmed_pages']} "
-            f"source={v['source']}: "
+            f"source={v['source']}: {body}"
             f"max_abs_err={v['max_abs_err']:.3e} row_steps={v['row_steps']} "
-            f"planted_fault(window-1, window+1)={v['planted_fault']} "
+            f"planted_fault={v['planted_fault']} "
             f"{times_text(v)} (SDPA) bound_ms={v['bound_ms']:.4f}"
             f" ({v['bound_by']})")
     gemms = []
@@ -2959,7 +3091,8 @@ def main() -> int:
             keys = ("pages", "t", "b", "h", "kv", "d", "window", "max_ctx",
                     "trimmed_pages", "source", "max_abs_err", "row_steps",
                     "planted_fault", "ms", "plain_ms", "library_ms",
-                    "bound_ms", "bound_by")
+                    "bound_ms", "bound_by", "stages", "bf16_steps",
+                    "wmma_device_ms")
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCES[kname],
             "replaces": replaces, "launches": main_path[kname],

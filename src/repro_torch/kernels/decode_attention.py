@@ -1,8 +1,9 @@
 """Decode attention on Hopper: wrappers of the CUDA kernels in
 ``csrc/decode_attention.cu`` (dense ring caches),
-``csrc/paged_attention.cu`` (the page pool) and
-``csrc/paged_span_attention.cu`` (spans of bf16 queries over bf16 or int8
-pages), and their plain-torch versions.
+``csrc/paged_attention.cu`` (the page pool),
+``csrc/paged_decode_attention.cu`` (one-token decode of bf16 queries over
+bf16 or int8 pages) and ``csrc/paged_span_attention.cu`` (spans of bf16
+queries over bf16 or int8 pages), and their plain-torch versions.
 
 Port of ``repro/kernels/decode_attention.py``'s ``decode_attention`` (one
 query against a dense ring cache), ``paged_decode_attention`` and
@@ -16,6 +17,7 @@ which kernels its main path went through.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Dict, List, Optional, Tuple
 
@@ -27,6 +29,7 @@ from repro_torch.kernels.build import load
 SOURCE = "paged_attention.cu"
 SPAN_SOURCE = "paged_span_attention.cu"
 DENSE_SOURCE = "decode_attention.cu"
+PAGED_DECODE_SOURCE = "paged_decode_attention.cu"
 # head dims the span kernel of SPAN_SOURCE is built for: every multiple of
 # 16 that a config serves through the page pool (16 in the smoke configs),
 # and 256 for the tests
@@ -36,12 +39,14 @@ launches: Dict[str, int] = {"decode_attention": 0,
                             "paged_decode_span_attention": 0}
 # span launches by the source whose kernel ran
 span_launches: Dict[str, int] = {SOURCE: 0, SPAN_SOURCE: 0}
+# one-token paged decode launches by the source whose kernel ran
+decode_launches: Dict[str, int] = {SOURCE: 0, PAGED_DECODE_SOURCE: 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def reset_launches() -> None:
-    for counts in (launches, span_launches):
+    for counts in (launches, span_launches, decode_launches):
         for name in counts:
             counts[name] = 0
 
@@ -222,6 +227,200 @@ def _launch_span(q, k_pages, v_pages, page_table, pos, k_scale, v_scale,
     return out
 
 
+# ---------------------------------------------------------------------------
+# The bf16 one-token paged decode body (csrc/paged_decode_attention.cu)
+# ---------------------------------------------------------------------------
+
+# keys a ring stage, the most splits of a row (the blocks of one
+# thread-block cluster), query heads a KV head (mma's 16 rows) and head dims
+# of the body; paged_decode_ring reports the built ones
+PAGED_KEYS = 64
+PAGED_MAX_SPLITS = 8
+PAGED_MAX_GROUPS = 16
+PAGED_MAX_D = 256
+
+
+def decode_source(q_dtype: torch.dtype, page_dtype: torch.dtype, d: int,
+                  groups: int) -> str:
+    """The CUDA source whose kernel a one-token paged decode on the card
+    launches: PAGED_DECODE_SOURCE for bf16 queries over bf16 or int8
+    pages at D a multiple of 8 up to PAGED_MAX_D and at most
+    PAGED_MAX_GROUPS query heads a KV head, ``paged_attention.cu``'s
+    bodies otherwise (f32 queries or pages among them). Fixed by the
+    dtypes and the shape before any launch."""
+    if (q_dtype == torch.bfloat16
+            and page_dtype in (torch.bfloat16, torch.int8)
+            and d > 0 and d % 8 == 0 and d <= PAGED_MAX_D
+            and 1 <= groups <= PAGED_MAX_GROUPS):
+        return PAGED_DECODE_SOURCE
+    return SOURCE
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedDecodePlan:
+    """A launch of the bf16 paged decode body: ``splits`` blocks (one
+    cluster) a (row, KV head), a ring of ``stages`` stages of PAGED_KEYS
+    keys, ``smem`` bytes of dynamic shared memory a block."""
+    splits: int
+    stages: int
+    smem: int
+
+
+def paged_tile(d: int) -> int:
+    """The body's tile width at head dim ``d``: the columns of its K and V
+    rows, zeros past d."""
+    for dp in (16, 32, 64, 128, 256):
+        if d <= dp:
+            return dp
+    raise ValueError(f"head dim {d} > {PAGED_MAX_D}")
+
+
+def paged_decode_ring(dp: int, quant: bool) -> Tuple[int, int]:
+    """(stages, shared-memory bytes of a block) of the body at tile width
+    ``dp``, bf16 or int8 (``quant``) pages: the Cfg of
+    csrc/paged_decode_attention.cu, which paged_decode_ring there
+    reports."""
+    ld = dp + 8
+    # int8: K and V rows, then a 4-byte word and a byte for each of the
+    # stage's 128 scales
+    stage = 2 * PAGED_KEYS * dp + 10 * PAGED_KEYS if quant \
+        else 2 * PAGED_KEYS * ld * 2
+    stages = 4 if quant or dp <= 64 else 3
+    dequant = 4 * 2 * 16 * ld * 2 if quant else 0
+    # the page-id ring: 2 * stages slots of 68 ids
+    walk = stages * stage + dequant + 2 * stages * 68 * 4
+    merge = (4 * 16 * (dp + 8) + 4 * 16 * 2) * 4  # the 4 warps' states
+    return stages, max(walk, merge)
+
+
+@functools.lru_cache(maxsize=256)
+def paged_decode_plan(b: int, kv: int, groups: int, d: int, p: int, m: int,
+                      num_sms: int,
+                      page_dtype: torch.dtype = torch.bfloat16
+                      ) -> PagedDecodePlan:
+    """The body's launch at a shape: splits of each (row, KV head)'s keys,
+    the largest power of two up to PAGED_MAX_SPLITS (the blocks of one
+    cluster) that keeps B * KV * splits blocks at one an SM for bf16 pages
+    (the dense decode's rule, dense_plan) and at two an SM for int8 pages,
+    and no more than the stages of a full table row (M * P slots); the
+    ring's stages and shared memory. Raises for a shape the body does not
+    take. The H100's readings behind the rule (chip_smoke.py's splits
+    sweep): bf16 pages stream, and at Mixtral's decode 4 splits of 32 rows
+    beat 8; int8 pages are held by the dequantize pass, and 8 splits (two
+    blocks an SM) beat 4."""
+    if (groups < 1 or groups > PAGED_MAX_GROUPS or d <= 0 or d % 8
+            or d > PAGED_MAX_D or p < 1 or m < 1 or kv < 1):
+        raise ValueError(f"the bf16 paged decode body takes H / KV <= "
+                         f"{PAGED_MAX_GROUPS} and D a multiple of 8 up to "
+                         f"{PAGED_MAX_D}; got groups={groups} D={d} P={p} "
+                         f"M={m} KV={kv}")
+    blocks = b * kv
+    slots = num_sms * (2 if page_dtype == torch.int8 else 1)
+    splits = 1
+    while (blocks > 0 and splits < PAGED_MAX_SPLITS
+           and 2 * splits * blocks <= slots):
+        splits *= 2
+    most = -(-m * p // PAGED_KEYS)  # stages of a full table row
+    while splits > most:
+        splits //= 2
+    stages, smem = paged_decode_ring(paged_tile(d),
+                                     page_dtype == torch.int8)
+    return PagedDecodePlan(splits=splits, stages=stages, smem=smem)
+
+
+def paged_row_slots(pos: int, p: int, m: int,
+                    window: Optional[int]) -> Tuple[int, int, bool]:
+    """(lo, hi, masked): the slots [lo, hi) of its table row that a decode
+    row at valid count ``pos`` streams (the kernel's row_range): its valid
+    keys, or, when it has none (masked), all M * P slots at -1e30."""
+    s, qp = m * p, pos - 1
+    masked = qp < 0 or (window is not None and qp - window + 1 > s - 1)
+    if masked:
+        return 0, s, True
+    lo = max(0, qp - window + 1) if window is not None else 0
+    return lo, min(qp + 1, s), False
+
+
+def paged_split_slots(pos: int, p: int, m: int, window: Optional[int],
+                      splits: int) -> List[List[int]]:
+    """The table-row slots that each of a row's ``splits`` ranks streams,
+    in order: the row's range in stages of PAGED_KEYS slots,
+    ceil(stages / splits) consecutive stages a rank."""
+    lo, hi, _ = paged_row_slots(pos, p, m, window)
+    stages = -(-(hi - lo) // PAGED_KEYS)
+    per = -(-stages // splits)
+    out = []
+    for r in range(splits):
+        sb = min(stages, r * per)
+        se = min(stages, sb + per)
+        out.append(list(range(lo + sb * PAGED_KEYS,
+                              min(lo + se * PAGED_KEYS, hi))))
+    return out
+
+
+def _paged_decode_lib() -> ctypes.CDLL:
+    lib = load(PAGED_DECODE_SOURCE)
+    if lib.paged_decode_attention.argtypes is None:
+        lib.paged_decode_attention.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+            + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        lib.paged_decode_attention.restype = ctypes.c_int
+        lib.paged_decode_ring.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.paged_decode_ring.restype = ctypes.c_int
+    return lib
+
+
+def built_paged_ring(page_dtype: torch.dtype,
+                     dp: int) -> Tuple[int, int, int, int]:
+    """The built body at tile width ``dp``: (keys a stage, stages, most
+    splits a row, shared-memory bytes a block)."""
+    out = (ctypes.c_int * 4)()
+    rc = _paged_decode_lib().paged_decode_ring(_DTYPE_CODE[page_dtype], dp,
+                                               out)
+    if rc != 0:
+        raise ValueError(f"no paged decode ring for {page_dtype} at tile "
+                         f"width {dp}")
+    return out[0], out[1], out[2], out[3]
+
+
+def _launch_decode(q, k_pages, v_pages, page_table, pos, k_scale, v_scale,
+                   window: Optional[int], splits: Optional[int],
+                   drop_stage: bool, merge_short: bool) -> torch.Tensor:
+    """The body of PAGED_DECODE_SOURCE: q (B,H,D) bf16 -> out (B,H,D)."""
+    _check(q[:, None], k_pages, v_pages, page_table, pos, k_scale, v_scale)
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    b, h, d = q.shape
+    n, p, kv, _ = k_pages.shape
+    m = page_table.shape[1]
+    plan = paged_decode_plan(b, kv, h // kv, d, p, m,
+                             _num_sms(q.device.index), k_pages.dtype)
+    if splits is None:
+        splits = plan.splits
+    elif not 1 <= splits <= PAGED_MAX_SPLITS:
+        raise ValueError(f"splits {splits} not in 1..{PAGED_MAX_SPLITS}")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on 16 bytes")
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t is not None and t.data_ptr() % 4:
+            raise ValueError(f"{name} must start on 4 bytes")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptr = lambda x: None if x is None else x.data_ptr()
+    rc = _paged_decode_lib().paged_decode_attention(
+        _DTYPE_CODE[k_pages.dtype], ptr(q), ptr(k_pages), ptr(v_pages),
+        ptr(k_scale), ptr(v_scale), ptr(page_table), ptr(pos), ptr(out), b,
+        h, kv, d, n, p, m, 0 if window is None else int(window),
+        float(d ** -0.5), splits, int(drop_stage), int(merge_short),
+        stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_decode_attention kernel launch failed "
+                           f"(splits {splits}): cudaError {rc}")
+    return out
+
+
 def paged_decode_attention_plain(q, k_pages, v_pages, page_table, pos, *,
                                  k_scale=None, v_scale=None,
                                  window: Optional[int] = None
@@ -246,17 +445,46 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            pos: torch.Tensor, *,
                            k_scale: Optional[torch.Tensor] = None,
                            v_scale: Optional[torch.Tensor] = None,
-                           window: Optional[int] = None) -> torch.Tensor:
+                           window: Optional[int] = None,
+                           splits: Optional[int] = None,
+                           drop_stage: bool = False,
+                           merge_short: bool = False) -> torch.Tensor:
     """q: (B,H,D); pages (N,P,KV,D), int8 with bf16 (N,P,KV) scales;
     page_table (B,M) int32 (unused entries point at trash page 0); pos
-    (B,) int32 valid token count. Returns (B,H,D) in q's dtype."""
+    (B,) int32 valid token count. Returns (B,H,D) in q's dtype. On the
+    card, bf16 queries over bf16 or int8 pages take the body of
+    PAGED_DECODE_SOURCE (decode_source), whose ``splits`` overrides
+    paged_decode_plan's (sweeps and tests). Its planted faults for the
+    checks: ``drop_stage`` has each rank skip its last stage;
+    ``merge_short`` has the merge leave out the last rank holding keys (a
+    no-op where a row's keys lie in one rank)."""
+    options = splits is not None or drop_stage or merge_short
     if q.device.type == "cpu":
+        if options:
+            raise ValueError("splits, drop_stage and merge_short are "
+                             "options of the CUDA body")
         return paged_decode_attention_plain(
             q, k_pages, v_pages, page_table, pos, k_scale=k_scale,
             v_scale=v_scale, window=window)
-    out = _launch(q[:, None], k_pages, v_pages, page_table, pos, k_scale,
-                  v_scale, window, pos_offset=-1)[:, 0]
+    if (q.dim() != 3 or k_pages.dim() != 4 or k_pages.shape[2] < 1
+            or q.shape[1] % k_pages.shape[2]):
+        raise ValueError(f"shapes q {tuple(q.shape)} pages "
+                         f"{tuple(k_pages.shape)}, want (B,H,D), (N,P,KV,D)")
+    src = decode_source(q.dtype, k_pages.dtype, q.shape[-1],
+                        q.shape[1] // k_pages.shape[2])
+    if src == PAGED_DECODE_SOURCE:
+        out = _launch_decode(q, k_pages, v_pages, page_table, pos, k_scale,
+                             v_scale, window, splits, drop_stage,
+                             merge_short)
+    else:
+        if options:
+            raise ValueError(f"splits, drop_stage and merge_short are "
+                             f"options of {PAGED_DECODE_SOURCE}'s body, not "
+                             f"of {src}'s")
+        out = _launch(q[:, None], k_pages, v_pages, page_table, pos,
+                      k_scale, v_scale, window, pos_offset=-1)[:, 0]
     launches["paged_decode_attention"] += 1
+    decode_launches[src] += 1
     return out
 
 
