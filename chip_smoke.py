@@ -144,7 +144,32 @@ result line):
                1e-3), and a
                run with a cube failure injected at step 5 (checkpoints every
                2 steps; full width, 2 layers) against an uninterrupted one:
-               bit-identical losses, with replayed steps.
+               bit-identical losses, with replayed steps;
+  8. fleet   - the fleet simulator fed by the card: (a) the bridge
+               (fleet.run_bridge on the card: qwen2-smoke, 18 steps, a
+               checkpoint every 6, failures {9: 0, 14: 1}; the real and
+               simulated ledger structures must match and speak the
+               five-kind grammar); (b) a full-width qwen2-0.5B serve through
+               python -m repro_torch.launch.serve --trace 8 with its Chrome
+               trace and steptrace, then the trace gate
+               (launch.trace_gate.run_gate) on them on the card: stages 1-4
+               fatal, stage 5 (the affine service model's calibration
+               against the card's chunks) logged as a reading, beside the
+               chunks' mean time at each batch and the fit's slope before
+               it is clamped at 0;
+               (c) the train phase's bf16 steptrace (first step with its
+               warm-up, as recorded) through fleet.perf.job_spec_from_trace
+               into a simulator at fleet_week's pod (Ironwood, 144 cubes, 16
+               spares): the job must finish with its ledger in the grammar;
+               (d) the five benchmarks/scenarios files, read in place,
+               through scenarios.run_scenario, every expect held, then
+               serve_train_mix with the service model fitted to the card's
+               serve steptrace (its gates logged as readings); (e) the
+               port's fleet_week at its defaults and its quickstart on the
+               card at its defaults (300 steps of 8 x 128, bf16), whose
+               assertion that the loss fell is fatal, then two of its
+               steps under torch.profiler (the device's busy share). The
+               bridge and the quickstart must launch the flash kernel.
 
 The kernels phase also holds the matmul kernel against its plain version
 (f32 and bf16 inputs at the self-test's 128^3, the JAX test shapes, a
@@ -2567,7 +2592,8 @@ def train_run(label, mods, trainer, state, steps, need):
 
 def train_qwen(mods):
     """This slice's path: full-width, full-depth qwen2-0.5B training through
-    the flash kernel. Returns the launch counts of its bf16 run."""
+    the flash kernel. Returns the launch counts of its bf16 run and that
+    run's measured steptrace (one event per step, the first with warm-up)."""
     import shutil
     import tempfile
     import torch
@@ -2613,6 +2639,7 @@ def train_qwen(mods):
             f"{[round(x, 4) for x in losses]}; peak memory "
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
             f"launches={counts}")
+        steptrace = trainer.steptrace()
         # three windows of two more steps under the profiler: device time
         # over each window's own wall time (timed inside the profiler),
         # after one unreported step under it (the profiler's first use
@@ -2694,6 +2721,224 @@ def train_qwen(mods):
             f"{led2.structure()}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return counts, steptrace
+
+
+# ------------------------------------------------------------------ fleet
+
+
+def _port_module(args, label: str, timeout: int):
+    """Run ``python -m <args>`` of the port in a process of its own, with
+    src on its path. Logs its output line by line and returns it with the
+    exit code."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC) + (os.pathsep + env["PYTHONPATH"]
+                                    if env.get("PYTHONPATH") else "")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    for line in proc.stdout.splitlines():
+        log(f"  {label}| {line}")
+    log(f"{label}: exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    if proc.returncode:
+        log(f"  {label} stderr: {proc.stderr[-3000:]}")
+    return proc.stdout, proc.returncode
+
+
+def _captured(fn, label: str):
+    """Call ``fn`` with its standard output captured, then log it.
+    Returns what ``fn`` returned."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+    finally:
+        for line in buf.getvalue().splitlines():
+            if line.strip():
+                log(f"  {label}| {line}")
+    log(f"{label}: done in {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def _chunk_fit(st):
+    """The decode chunks of a serve steptrace as
+    ``service_model_from_trace`` fits them: (number, mean s) of the chunks
+    at each recorded batch, and the least-squares slope of chunk time in
+    batch before the fit clamps it at 0 (None when the batch never
+    varies)."""
+    from repro_torch.obs.steptrace import EFFECTIVE_KINDS
+    bs = st.feature_values("batch", EFFECTIVE_KINDS, default=1.0)
+    ds = st.durations(EFFECTIVE_KINDS)
+    by_batch = {}
+    for b, d in zip(bs, ds):
+        by_batch.setdefault(b, []).append(d)
+    n = len(ds)
+    mean_b, mean_d = sum(bs) / n, sum(ds) / n
+    var_b = sum((b - mean_b) ** 2 for b in bs) / n
+    slope = (sum((b - mean_b) * (d - mean_d) for b, d in zip(bs, ds))
+             / n / var_b if var_b > 1e-12 else None)
+    return slope, {b: (len(v), sum(v) / len(v))
+                   for b, v in sorted(by_batch.items())}
+
+
+def fleet_phase(mods, train_trace):
+    """The fleet simulator fed by the card: the bridge against the port's
+    trainer on the card, a full-width qwen2-0.5B serve and the trace gate
+    over its trace, the simulator driven by the train phase's steptrace,
+    the five scenario files, fleet_week and the quickstart. Returns the
+    launch counts of its two in-process training runs."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.examples import fleet_week, quickstart
+    from repro_torch.fleet import (GRAMMAR_KINDS, FleetSimulator,
+                                   StepTimeModel, grammar_ok,
+                                   job_spec_from_trace, load_scenario_paths,
+                                   run_bridge, run_scenario,
+                                   service_model_from_trace)
+    from repro_torch.launch import trace_gate
+    from repro_torch.obs.steptrace import StepTrace
+
+    counts = {}
+    # (a) the bridge: the port's trainer on the card vs the simulator
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    out = run_bridge(device="cuda")
+    torch.cuda.synchronize()
+    counts["fleet_bridge"] = read_counts(mods)
+    for side in ("real_structure", "sim_structure"):
+        if not all(k in GRAMMAR_KINDS for k, _ in out[side]):
+            raise AssertionError(f"bridge {side} leaves the grammar: "
+                                 f"{out[side]}")
+    if not out["match"] or counts["fleet_bridge"]["flash_attention"] == 0:
+        raise AssertionError(f"bridge: match={out['match']} "
+                             f"{out['real_structure']} vs "
+                             f"{out['sim_structure']}; launches "
+                             f"{counts['fleet_bridge']}")
+    log(f"fleet[bridge qwen2-smoke on the card, 18 steps, ckpt every 6, "
+        f"failures {{9: 0, 14: 1}}]: match={out['match']} in "
+        f"{time.perf_counter() - t0:.1f}s; real goodput "
+        f"{out['real_goodput']:.4f} sim goodput {out['sim_goodput']:.4f}; "
+        f"{out['replay_summary']}; structure {out['real_structure']}; "
+        f"launches={counts['fleet_bridge']}")
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_fleet_"))
+    try:
+        # (b) a full-width serve through the port's launcher, then the gate
+        trace, steps = tmp / "serve_trace.json", tmp / "serve_steptrace.json"
+        _, rc = _port_module(
+            ["repro_torch.launch.serve", "--arch", "qwen2_0_5b", "--trace",
+             "8", "--trace-out", str(trace), "--steptrace-out", str(steps)],
+            "serve[qwen2_0_5b full width]", 600)
+        if rc or not trace.exists() or not steps.exists():
+            raise AssertionError(f"full-width serve exited {rc}")
+        gate = _captured(lambda: trace_gate.run_gate(
+            str(trace), str(steps), "cuda"), "trace_gate")
+        # stage 2, the trainer, raises if it fails; the others are checks
+        stages = dict(gate["stages"])
+        cal_problems = stages.pop("serve calibration")
+        if len(stages) != 3 or any(stages.values()):
+            raise AssertionError(f"trace gate stages {gate['stages']}")
+        cal = gate["calibration"]
+        slope, by_batch = _chunk_fit(StepTrace.read(str(steps)))
+        log(f"fleet[trace gate on the full-width serve]: stages 1-4 ok; "
+            f"stage 5 (calibration, a reading) "
+            f"{'FAILED' if cal_problems else 'ok'}: rel_err "
+            f"{cal['rel_err']:.3e}, sim chunk {cal['sim_chunk_s']:.6f}s "
+            f"vs measured {cal['measured_chunk_s']:.6f}s at batch "
+            f"{cal['target_batch']:.0f} (exact by construction when the "
+            f"fitted slope is 0: the sim then replays the trace's mean "
+            f"chunk); unclamped slope "
+            f"{'none (one batch)' if slope is None else f'{slope:.6e}'}"
+            f" s a slot; chunks at each batch (count, mean s) "
+            f"{ {b: (c, round(m, 6)) for b, (c, m) in by_batch.items()} }")
+
+        # (c) the simulator fed by the card's full-width training
+        model = StepTimeModel.from_trace(train_trace)
+        first = train_trace.events[0]
+        spec = job_spec_from_trace("h100_qwen2_0_5b", train_trace,
+                                   chips=2048, total_steps=20_000,
+                                   checkpoint_every_steps=600,
+                                   scale_policy="shrink", min_cubes=8)
+        # the card's job in job0's place on fleet_week's pod
+        sim = FleetSimulator(fleet_week.pod_config(),
+                             [spec] + fleet_week.pod_jobs()[1:])
+        sim.run(2 * 86400.0)
+        job = sim.jobs["h100_qwen2_0_5b"]
+        if job.state != "done" or not grammar_ok(job.ledger):
+            raise AssertionError(f"card-fed sim job {job.state}, grammar "
+                                 f"{grammar_ok(job.ledger)}")
+        log(f"fleet[sim fed by the bf16 train steptrace, qwen2-0.5B 4 x "
+            f"2048]: measured step model mean {model.mean_step_s:.6f}s over "
+            f"{len(model.durations)} steps {list(model.durations)} (first "
+            f"event: {first.kind} {first.duration_s:.6f}s, warm-up "
+            f"included); job of 20000 steps on 32 Ironwood cubes of 144 "
+            f"(16 spares) beside 3 fleet_week jobs: {job.state} at "
+            f"{job.completed_at:.1f}s, goodput {job.ledger.goodput:.6f}, "
+            f"ledger {job.ledger.summary()}, fleet "
+            f"{sim.fleet_summary()}")
+
+        # (d) the five scenario files, in place, then serve_train_mix with
+        # its service model calibrated from the card's serve steptrace
+        paths = load_scenario_paths(ROOT / "benchmarks" / "scenarios")
+        if len(paths) != 5:
+            raise AssertionError(f"scenario files: {paths}")
+        for path in paths:
+            doc = json.loads(path.read_text())
+            res = run_scenario(doc)
+            if not res["ok"]:
+                raise AssertionError(f"scenario {path.stem}: "
+                                     f"{res['checks']}")
+            log(f"fleet[scenario {path.stem}]: ok, "
+                f"{len(res['checks'])} gates held")
+        measured = service_model_from_trace(StepTrace.read(str(steps)))
+        doc = json.loads((ROOT / "benchmarks" / "scenarios"
+                           / "serve_train_mix.json").read_text())
+        res = run_scenario(doc, service=measured)
+        gates = [(c["metric"], c["op"], c["value"], c["target"], c["ok"])
+                 for c in res["checks"]]
+        log(f"fleet[scenario serve_train_mix, service model from the card's "
+            f"serve steptrace {measured}]: ok={res['ok']} (a reading); "
+            f"gates {gates}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (e) fleet_week at its defaults, then the quickstart on the card
+    _captured(lambda: fleet_week.main([]), "fleet_week")
+    reset_counts(mods)
+    _captured(lambda: quickstart.main(["--device", "cuda"]), "quickstart")
+    torch.cuda.synchronize()
+    counts["quickstart"] = read_counts(mods)
+    if counts["quickstart"]["flash_attention"] == 0:
+        raise AssertionError(f"quickstart launches {counts['quickstart']}")
+    log(f"fleet[quickstart]: launches={counts['quickstart']}")
+    # the device's share of a window of two quickstart steps, after one
+    # step under the profiler to warm it
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        trainer, state = quickstart.make_trainer(ckpt_dir, device="cuda")
+        batches = [trainer.pipeline.batch_for_step(i) for i in range(3)]
+        with device_profiler():
+            state, m = trainer.train_step(state, batches[0])
+            float(m["loss"])
+        torch.cuda.synchronize()
+        with device_profiler() as prof:
+            t0 = time.perf_counter()
+            for b in batches[1:]:
+                state, m = trainer.train_step(state, b)
+                float(m["loss"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = read_profile(prof, wall, top=8)
+        del trainer, state
+    torch.cuda.empty_cache()
+    log(f"fleet[quickstart step profile]: 2 steps of 8 x 128 in {wall:.4f}s "
+        f"wall, device busy {100 * busy:.2f} %")
     return counts
 
 
@@ -3018,8 +3263,10 @@ def main() -> int:
     counts["qwen2_0_5b_bist"], counts["qwen2_0_5b_chaos"] = \
         serve_resilient(mods)
     log(f"resilient serve phase done at {time.perf_counter() - t_start:.1f}s")
-    counts["qwen2_0_5b_train"] = train_qwen(mods)
+    counts["qwen2_0_5b_train"], train_trace = train_qwen(mods)
     log(f"train phase done at {time.perf_counter() - t_start:.1f}s")
+    counts.update(fleet_phase(mods, train_trace))
+    log(f"fleet phase done at {time.perf_counter() - t_start:.1f}s")
     serve_path = counts[f"mixtral_8x22b_{MIXTRAL_LAYERS}l"]
 
     # one line for every kernel: launches on the path that runs it (matmul:

@@ -5,7 +5,10 @@ verified checkpoints, injected cube failures with OCS spare substitution,
 restore and replay, and a goodput ledger. Weights are random, made from
 ``--seed`` on the device. Compute is f32, as in the reference driver,
 unless ``--dtype bfloat16`` (parameters, gradients and optimizer state
-stay f32). The device is the card unless ``--device cpu``.
+stay f32). The device is the card unless ``--device cpu``. Its last lines
+include the ``carbon:`` line of the reference driver: the paper's Ironwood
+CCI (gCO2e per EFLOP) applied to the run's 6 * N * tokens FLOPs, a figure
+for those FLOPs on an Ironwood pod, not a reading of this device.
 
 On the card the attention of the loss's forward runs the hand-written
 flash kernel, and ``build_trainer`` turns on PyTorch's deterministic mode
@@ -35,6 +38,7 @@ import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.registry import get_arch, get_smoke
+from repro_torch.core.cci import CCI_BY_NAME, CarbonLedger
 from repro_torch.core.ocs import OCSPodScheduler
 from repro_torch.data.pipeline import DataConfig, DataPipeline
 from repro_torch.device import DeviceLike, resolve_device
@@ -147,9 +151,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         seed=args.seed, failures=failures, tracer=tracer,
         compute_dtype=DTYPES[args.dtype], device=device)
 
+    carbon = CarbonLedger(CCI_BY_NAME["ironwood"])
     t0 = time.time()
     state, ledger, losses = trainer.run(state, args.steps)
     wall = time.time() - t0
+    flops_per_step = 6.0 * cfg.active_params() * args.batch * args.seq
+    carbon.record_step(flops_per_step * len(losses))
     print(f"\ntrained {len(losses)} effective steps in {wall:.1f}s on "
           f"{device.type}; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     # one-line goodput/step-time summary from the telemetry registry
@@ -166,6 +173,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
           f"p95={hist.quantile(0.95) * 1e3:.0f}ms (histogram buckets) "
           f"| median step {median * 1e3:.1f}ms, "
           f"{args.batch * args.seq / median:.0f} tok/s")
+    # the paper's Ironwood CCI (Figure 6) applied to the run's model FLOPs:
+    # what these FLOPs would emit on an Ironwood pod, not this device's
+    print("carbon: (the paper's Ironwood CCI applied to this run's "
+          "6*N*tokens FLOPs, not a measurement of this device)",
+          {k: f"{v:.3e}" for k, v in carbon.summary().items()})
     if args.metrics_out:
         trainer.metrics.to_jsonl(args.metrics_out)
         print(f"metrics snapshot appended to {args.metrics_out}")

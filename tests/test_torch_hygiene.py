@@ -13,8 +13,10 @@ import torch
 
 from repro_torch.configs.registry import get_smoke
 from repro_torch.core.sdc import FBIST
-from repro_torch.examples import dlrm_sparsecore
+from repro_torch.examples import dlrm_sparsecore, quickstart
+from repro_torch.fleet import run_bridge
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import trace_gate
 from repro_torch.launch import train as launch_train
 from repro_torch.models import api
 from repro_torch.models.blocks import ModelContext
@@ -46,6 +48,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     mods = list(_modules())
     assert "repro_torch.serve.engine" in mods
     assert "repro_torch.examples.dlrm_sparsecore" in mods
+    assert "repro_torch.fleet.sim" in mods
+    assert "repro_torch.launch.trace_gate" in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -78,6 +82,12 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
         dlrm_sparsecore.main(["--steps", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FBIST().run(lambda a, b: a @ b)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_bridge()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trace_gate.main(["serve_trace.json", "serve_steptrace.json"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quickstart.main(["--steps", "1"])
     with pytest.raises(ValueError, match="CUDA"):
         startup_bist(device="cpu")  # the kernels need CUDA tensors
     with pytest.raises(ValueError, match="CUDA device"):
@@ -111,3 +121,12 @@ def test_train_launcher_trains_a_smoke_trace_on_the_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "trained 6 effective steps" in out
     assert "replayed=1" in out and "goodput=" in out and "tok/s" in out
+    carbon = [line for line in out.splitlines()
+              if line.startswith("carbon:")]
+    assert len(carbon) == 1
+    assert "the paper's Ironwood CCI" in carbon[0]
+    assert "not a measurement of this device" in carbon[0]
+    flops = 6.0 * get_smoke("qwen2_0_5b").active_params() * 2 * 16 * 6
+    assert f"'flops': '{flops:.3e}'" in carbon[0]
+    for key in ("'gco2e_market'", "'gco2e_location'"):
+        assert key in carbon[0]
