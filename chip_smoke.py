@@ -145,6 +145,29 @@ result line):
                run with a cube failure injected at step 5 (checkpoints every
                2 steps; full width, 2 layers) against an uninterrupted one:
                bit-identical losses, with replayed steps;
+  7b. train_state - full-width, full-depth rwkv6-1.6B (24 layers) through
+               build_trainer + ResilientTrainer.run at batch 4 x seq 2048,
+               bf16 compute, 6 steps through the WKV forward and backward
+               kernels (launches = 2 x 24 x steps forward, the block
+               checkpoint's recompute included, and 24 x steps backward):
+               step times, median, tok/s, MFU, peak memory, losses, then
+               one profiled window of 2 steps (device busy share and time
+               by class); then f32 (TF32 off) 3 steps at 4 of the 24
+               layers (batch 1 x 2048) through attn_impl "cuda" and "ref"
+               from the same parameters: losses within rel 1e-4, grad
+               norms within rel 1e-3 and every leaf of the first batch's
+               gradient within 1e-3 of its largest |value|, a run with the
+               backward's planted fault (drop_carry: every group's
+               gradient walk from zero) failing that check; a failure
+               replay at 2 layers bit-identical to the uninterrupted run;
+               Jamba's smoke config (Mamba, attention through the flash
+               kernel, MoE) f32 kernel vs plain under the same limits; and
+               the WKV backward kernel at the training shape and the smoke
+               heads (hd 16): all six gradients within WKV_GRAD_LIMIT of
+               each one's largest |value| against wkv_backward_plain, a
+               repeat bitwise, the planted fault failing, its time beside
+               autograd's backward through the plain chunked WKV, each of
+               its four kernels' device time, and its byte bound;
   8. fleet   - the fleet simulator fed by the card: (a) the bridge
                (fleet.run_bridge on the card: qwen2-smoke, 18 steps, a
                checkpoint every 6, failures {9: 0, 14: 1}; the real and
@@ -215,7 +238,7 @@ at Whisper's cross-attention (12 heads x 64, S_q 64 and 448, S_k 1500,
 bidirectional, f32 and bf16), the kernel told S_k - 1 keys failing the
 flash limits.
 Training turns on torch's deterministic mode (process-wide), so it runs
-last.
+after the serving phases.
 
 Each serve or train run sets every launch counter to 0 just before it and
 reads them just after; a kernel of that path launched no time fails the
@@ -267,6 +290,10 @@ KERNELS = {
         "src/repro/kernels/decode_attention.py:276",
     "grouped_matmul": "src/repro/kernels/moe_gemm.py:55",
     "rwkv_wkv": "src/repro/kernels/rwkv_scan.py:75",
+    # no Pallas kernel: the reference trains through jax.grad of this
+    # function, and its Pallas rwkv_wkv has no backward
+    "rwkv_wkv_backward": "src/repro/models/rwkv6.py:123 (the gradient of "
+                         "_chunked_wkv)",
     "sparse_gather_sum": "src/repro/kernels/sparse_gather.py:44",
 }
 SOURCES = {
@@ -279,6 +306,7 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/paged_span_attention.cu",
     "grouped_matmul": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
     "rwkv_wkv": "src/repro_torch/kernels/csrc/rwkv_wkv.cu",
+    "rwkv_wkv_backward": "src/repro_torch/kernels/csrc/rwkv_wkv_bwd.cu",
     "sparse_gather_sum": "src/repro_torch/kernels/csrc/sparse_gather.cu",
 }
 EPS32 = 1.1920929e-07
@@ -2551,7 +2579,9 @@ def _param_count(tree) -> int:
 
 def device_classes(prof):
     """Device time (ms) of a profile, summed by kind of kernel."""
-    classes = (("flash", ("flash_wgmma_kernel", "flash_merge_kernel",
+    classes = (("wkv_backward", ("wkv_bwd_",)),
+               ("wkv_forward", ("wkv_",)),
+               ("flash", ("flash_wgmma_kernel", "flash_merge_kernel",
                           "flash_f32_kernel")),
                ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "Kernel2")),
                ("softmax", ("oftMax", "softmax")),
@@ -2722,6 +2752,351 @@ def train_qwen(mods):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return counts, steptrace
+
+
+# ------------------------------------------------------------- train_state
+
+# the WKV backward's limit, of each result's largest |value| (at least 1):
+# f32 sums in another order over up to 2048 tokens, and the cumulative log
+# decay's rounding, which the factors exp(cum_excl) and exp(-cum) (up to
+# e^64 at chunk 16) carry
+WKV_GRAD_LIMIT = 1e-4
+WKV_GRAD_NAMES = ("dr", "dk", "dv", "dlogw", "du", "ds0")
+# (label, B, S, H, hd, chunk, nonzero s0 and d_state): rwkv6-1.6B's
+# training shape (no initial state, no final-state cotangent, as the loss
+# has), and the smoke model's heads (hd 16) from a nonzero state
+WKV_GRAD_CASES = (
+    ("train_rwkv6", 4, 2048, 32, 64, 16, False),
+    ("smoke_hd16", 4, 256, 4, 16, 16, True),
+)
+STATE_TRAIN_STEPS = 6
+STATE_CHECK_LAYERS = 4  # of rwkv6's 24 in the f32 kernel-vs-plain runs
+
+
+def wkv_grad_case(label: str, b: int, s: int, h: int, hd: int, chunk: int,
+                  nonzero: bool, seed: int = 0):
+    """The WKV backward kernel after the forward the plan picks: its six
+    results against wkv_backward_plain within WKV_GRAD_LIMIT of each one's
+    largest |value|, a repeat bitwise equal, the planted fault (every
+    group's gradient walk started from zero) failing the limit; times
+    (plain_ms: autograd's backward through chunked_wkv_plain, its graph
+    kept), each of its four kernels' device time, and the bound. No single
+    PyTorch call computes this gradient: library_ms is None."""
+    import torch
+    from repro_torch.kernels import rwkv_scan
+
+    r, k, v, lw, u, s0 = _wkv_inputs(b, s, h, hd, nonzero, False, seed)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 1)
+    dout = torch.randn((b, s, h, hd), generator=g, device="cuda")
+    dstate = (torch.randn((b, h, hd, hd), generator=g, device="cuda") * 0.5
+              if nonzero else None)
+    plan = rwkv_scan.wkv_plan(b, s, h, hd, chunk)
+    _, _, states, _ = rwkv_scan._forward(r, k, v, lw, u, s0, chunk=chunk,
+                                         plan=plan)
+    run = lambda **kw: rwkv_scan.rwkv_wkv_backward(
+        r, k, v, lw, u, s0, dout, dstate, chunk=chunk, states=states,
+        plan=plan, **kw)
+    before = rwkv_scan.launches["rwkv_wkv_backward"]
+    got = run()
+    want = rwkv_scan.wkv_backward_plain(r, k, v, lw, u, s0, dout, dstate,
+                                        chunk=chunk)
+    torch.cuda.synchronize()
+    if rwkv_scan.launches["rwkv_wkv_backward"] != before + 1:
+        raise AssertionError("rwkv_wkv_backward: the wrapper did not count "
+                             "its launch")
+
+    def reading(x, y):
+        return float((x - y).abs().max()) / max(1.0, float(y.abs().max()))
+
+    errs, abs_err = {}, 0.0
+    for name, x, y in zip(WKV_GRAD_NAMES, got, want):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"rwkv_wkv_backward {label}: {name} is not "
+                                 f"finite")
+        errs[name] = reading(x, y)
+        abs_err = max(abs_err, float((x - y).abs().max()))
+    if max(errs.values()) > WKV_GRAD_LIMIT:
+        raise AssertionError(f"rwkv_wkv_backward {label}: {errs} > "
+                             f"{WKV_GRAD_LIMIT}")
+    again = run()
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"rwkv_wkv_backward {label}: a repeat differs")
+    bad = run(drop_carry=True)
+    planted = max(reading(x, y) for x, y in zip(bad[:4], want[:4]))
+    if planted <= WKV_GRAD_LIMIT:
+        raise AssertionError(f"rwkv_wkv_backward {label}: the planted fault "
+                             f"passes the limit ({planted})")
+    # the plain version's time: autograd's backward through the plain
+    # chunked WKV, its graph kept
+    leaves = [x.clone().requires_grad_() for x in (r, k, v, lw, u, s0)
+              if x is not None]
+    out, s_final = rwkv_scan.chunked_wkv_plain(*leaves[:5], *leaves[5:],
+                                               chunk=chunk)
+    outs, cots = ((out, s_final), (dout, dstate)) if nonzero else (
+        (out,), (dout,))
+    plain = lambda: torch.autograd.grad(outs, leaves, cots,
+                                        retain_graph=True)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    times = case_times(run, plain, None, flush, plain_iters=5)
+    rows = _profiled(run, flush, 20)
+    parts = {}
+    for kernel in ("wkv_bwd_state", "wkv_bwd_scan", "wkv_bwd_grad",
+                   "wkv_bwd_du"):
+        mine = [(us, n) for name, us, n in rows if kernel in name]
+        parts[kernel] = round(sum(us / n for us, n in mine) / 1e3, 4)
+    del out, s_final, outs, plain, leaves
+    n_groups = plan.n_groups if plan.body == "split" else 1
+    # least time: r, k, v, logw and dout read once, dr, dk, dv and dlogw
+    # written once, the forward's group states (split), u, s0 and d_state
+    # read, du and ds0 written; f32 flops ~ 2 B H S (4 hd^2 + 3 c hd)
+    nbytes = 4.0 * (9 * b * s * h * hd + 2 * h * hd
+                    + (b * h * n_groups * (hd + 1) * hd
+                       if plan.body == "split" else 0)
+                    + (3 if nonzero else 1) * b * h * hd * hd)
+    flops = 2.0 * b * h * s * (4 * hd * hd + 3 * chunk * hd)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS["float32"]
+    torch.cuda.empty_cache()
+    return {
+        "name": "rwkv_wkv_backward", "label": label, "b": b, "s": s,
+        "h": h, "hd": hd, "chunk": chunk, "s0": nonzero,
+        "body": plan.body, "group": plan.group, "n_groups": n_groups,
+        "errs": errs, "max_abs_err": abs_err,
+        "limit": WKV_GRAD_LIMIT, "planted_fault": planted,
+        "kernels_device_ms": parts, **times,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "flops": flops,
+    }
+
+
+def _f32_state_run(label, mods, cfg, impl, pipe, steps, need):
+    """``steps`` f32 train steps (TF32 off) of ``cfg`` through the train
+    step build_trainer makes, with ``attn_impl=impl``, from the seed-0
+    parameters, after one loss's per-leaf gradients on the first batch.
+    Returns ((loss, grad_norm) a step, {leaf: gradient}, launch counts)."""
+    import torch
+    from repro_torch.launch.train import make_optimizer
+    from repro_torch.models import api
+    from repro_torch.models.blocks import ModelContext
+    from repro_torch.models.params import tree_items, tree_map
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    opt = make_optimizer("adamw", total_steps=10_000)
+    ctx = ModelContext(compute_dtype=torch.float32, q_chunk=2048,
+                       mamba_chunk=64, rwkv_chunk=16, attn_impl=impl,
+                       device="cuda")
+    step = make_train_step(cfg, ctx, opt)
+    state = init_train_state(0, cfg, opt, device="cuda")
+    reset_counts(mods)
+    params = tree_map(lambda p: p.detach().clone().requires_grad_(),
+                      state["params"])
+    batch = {key: torch.as_tensor(val, device=ctx.device)
+             for key, val in pipe.batch_for_step(0).items()}
+    loss, _ = api.loss_fn(params, batch, cfg, ctx)
+    loss.backward()
+    grads = {path: leaf.grad for path, leaf in tree_items(params)}
+    del params, loss
+    out = []
+    for i in range(steps):
+        state, m = step(state, pipe.batch_for_step(i))
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    counts = read_counts(mods)
+    for name in need:
+        if (counts[name] > 0) != (impl == "cuda"):
+            raise AssertionError(f"{label} {impl}: {name} launches "
+                                 f"{counts[name]}")
+    del state
+    torch.cuda.empty_cache()
+    return out, grads, counts
+
+
+def _kernel_vs_plain(kernel, plain):
+    """What of the f32 kernel run leaves the limits of the plain run's:
+    losses rel 1e-4, grad norms rel 1e-3 (the qwen phase's), and each
+    leaf of the first batch's gradient within 1e-3 of its largest |value|
+    (the grad norms' limit, leaf by leaf)."""
+    bad = []
+    for i, ((lk, gk), (lr, gr)) in enumerate(zip(kernel[0], plain[0])):
+        if abs(lk - lr) > 1e-4 * abs(lr):
+            bad.append(f"loss step {i}: {lk} vs {lr}")
+        if abs(gk - gr) > 1e-3 * gr:
+            bad.append(f"grad_norm step {i}: {gk} vs {gr}")
+    for path, want in plain[1].items():
+        err = float((kernel[1][path] - want).abs().max())
+        if err > 1e-3 * float(want.abs().max()):
+            bad.append(f"{path}: {err:.3e} of {float(want.abs().max()):.3e}")
+    return bad
+
+
+def train_state(mods):
+    """This slice's path: rwkv6-1.6B training at full width and depth
+    through the WKV forward and backward kernels; then f32 kernel vs plain
+    (with the backward's planted fault failing it), failure replay at 2
+    layers, Jamba's smoke config through the flash kernel and plain Mamba,
+    and the WKV backward kernel's cases. Returns the launch counts of each
+    run by path."""
+    import functools
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs.registry import get_arch, get_smoke
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    from repro_torch.kernels import rwkv_scan
+    from repro_torch.launch.train import build_trainer
+
+    t_phase = time.perf_counter()
+    cfg = get_arch("rwkv6_1_6b")
+    paths = {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_state_ckpt_"))
+    try:
+        # (a) bf16 compute, f32 parameters and optimizer state
+        trainer, state = build_trainer(
+            cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, ckpt_dir=str(tmp / "bf16"),
+            checkpoint_every=10_000, compute_dtype=torch.bfloat16,
+            device="cuda")
+        n_params = _param_count(state["params"])
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, ledger, losses, counts = train_run(
+            "train_state_bf16", mods, trainer, state, STATE_TRAIN_STEPS,
+            ("rwkv_wkv", "rwkv_wkv_backward"))
+        wall = time.perf_counter() - t0
+        want = {"rwkv_wkv": 2 * cfg.n_layers * STATE_TRAIN_STEPS,
+                "rwkv_wkv_backward": cfg.n_layers * STATE_TRAIN_STEPS}
+        if any(counts[k] != n for k, n in want.items()):
+            raise AssertionError(f"rwkv6 train launches {counts} != {want}")
+        paths["rwkv6_1_6b_train"] = counts
+        times = sorted(r.duration_s for r in trainer.records)
+        steady = times[len(times) // 2]
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        mfu = 6.0 * n_params * tokens / steady / PEAK_FLOPS["bfloat16"]
+        log(f"train_state[rwkv6_1_6b bf16]: {cfg.n_layers} layers, "
+            f"{n_params} params, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+            f"{STATE_TRAIN_STEPS} steps in {wall:.3f}s; sorted step times "
+            f"{[round(t * 1e3, 1) for t in times]} ms; median step "
+            f"{steady * 1e3:.2f}ms {tokens / steady:.0f} tok/s MFU "
+            f"{100 * mfu:.2f}% (6*N*tokens / step / 989 TFLOP/s); losses "
+            f"{[round(x, 4) for x in losses]}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+            f"launches={counts}")
+        # one window of two steps under the profiler, after one
+        # unreported step under it
+        with device_profiler():
+            state, m = trainer.train_step(
+                state, trainer.pipeline.batch_for_step(STATE_TRAIN_STEPS))
+            float(m["loss"])
+        batches = [trainer.pipeline.batch_for_step(STATE_TRAIN_STEPS + 1 + i)
+                   for i in range(2)]
+        torch.cuda.synchronize()
+        with device_profiler() as prof:
+            t0 = time.perf_counter()
+            for b in batches:
+                state, m = trainer.train_step(state, b)
+                float(m["loss"])
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t0
+        busy = read_profile(prof, pwall, top=20)
+        log(f"train_state[rwkv6_1_6b bf16] device busy {100 * busy:.1f} % "
+            f"of a profiled window of 2 steps ({pwall:.4f} s against 2 x "
+            f"the unprofiled median step {2 * steady:.4f} s); device time "
+            f"by class: {device_classes(prof)}")
+        del trainer, state, prof
+        torch.cuda.empty_cache()
+
+        # (b) f32, TF32 off: kernel vs plain at 4 of the 24 layers, and the
+        # backward's planted fault failing the same check
+        cfg4 = dataclasses.replace(cfg, n_layers=STATE_CHECK_LAYERS)
+        pipe = DataPipeline(DataConfig(global_batch=1, seq_len=TRAIN_SEQ,
+                                       vocab_size=cfg.vocab_size), cfg4)
+        need = ("rwkv_wkv", "rwkv_wkv_backward")
+        runs = {impl: _f32_state_run("train_state f32", mods, cfg4, impl,
+                                     pipe, 3, need)
+                for impl in ("cuda", "ref")}
+        bad = _kernel_vs_plain(runs["cuda"], runs["ref"])
+        if bad:
+            raise AssertionError(f"rwkv6 f32 kernel vs plain: {bad}")
+        paths["rwkv6_1_6b_train_f32"] = runs["cuda"][2]
+        orig = rwkv_scan.rwkv_wkv_backward
+        rwkv_scan.rwkv_wkv_backward = functools.partial(orig,
+                                                        drop_carry=True)
+        try:
+            faulty = _f32_state_run("train_state f32 fault", mods, cfg4,
+                                    "cuda", pipe, 3, need)
+        finally:
+            rwkv_scan.rwkv_wkv_backward = orig
+        planted = _kernel_vs_plain(faulty, runs["ref"])
+        if not planted:
+            raise AssertionError("rwkv6 f32: the backward's planted fault "
+                                 "passes the kernel-vs-plain check")
+        log(f"train_state[rwkv6 f32 kernel vs plain, {STATE_CHECK_LAYERS} "
+            f"layers, batch 1 x {TRAIN_SEQ}]: (loss, grad_norm) kernel "
+            f"{runs['cuda'][0]} plain {runs['ref'][0]}; every leaf of the "
+            f"first batch's gradient within 1e-3 of its largest |value|; "
+            f"the planted fault (drop_carry) fails it: {len(planted)} "
+            f"findings, e.g. {planted[:3]}")
+        del runs, faulty
+        torch.cuda.empty_cache()
+
+        # (c) failure + restore + replay == uninterrupted, bit for bit; a
+        # checkpoint every 4 steps, since each writes ~4.4 GB of f32 state
+        # (the 65536-row embedding and head dominate at 2 layers)
+        cfg2 = dataclasses.replace(cfg, n_layers=2)
+        res = {}
+        for label, failures in (("clean", None), ("failure", {5: 3})):
+            trainer, state = build_trainer(
+                cfg2, batch=2, seq=512, ckpt_dir=str(tmp / label),
+                checkpoint_every=4, failures=failures, device="cuda")
+            _, ledger, losses, c = train_run(
+                f"train_state_f32_{label}", mods, trainer, state, 6,
+                ("rwkv_wkv", "rwkv_wkv_backward"))
+            res[label] = (losses, ledger, trainer.replay_summary())
+            del trainer, state
+            torch.cuda.empty_cache()
+        (l1, led1, _), (l2, led2, rs) = res["clean"], res["failure"]
+        if l1 != l2 or rs["replayed_steps"] == 0:
+            raise AssertionError(f"rwkv6 replay: {l1} vs {l2}, {rs}")
+        log(f"train_state[rwkv6 f32 failure at step 5, ckpt every 4, 2 "
+            f"layers]: losses bit-identical to the uninterrupted run {l2}; "
+            f"{rs}; goodput {led2.goodput:.4f} vs {led1.goodput:.4f}")
+
+        # (d) Jamba's smoke config: flash kernel and plain Mamba vs plain
+        jcfg = get_smoke("jamba_v01_52b")
+        jpipe = DataPipeline(DataConfig(global_batch=2, seq_len=512,
+                                        vocab_size=jcfg.vocab_size), jcfg)
+        jruns = {impl: _f32_state_run("train_state jamba", mods, jcfg, impl,
+                                      jpipe, 3, ("flash_attention",))
+                 for impl in ("cuda", "ref")}
+        bad = _kernel_vs_plain(jruns["cuda"], jruns["ref"])
+        if bad:
+            raise AssertionError(f"jamba smoke f32 kernel vs plain: {bad}")
+        paths["jamba_smoke_train_f32"] = jruns["cuda"][2]
+        log(f"train_state[jamba smoke f32 kernel vs plain, batch 2 x 512]: "
+            f"(loss, grad_norm) kernel {jruns['cuda'][0]} plain "
+            f"{jruns['ref'][0]}; launches={jruns['cuda'][2]}")
+        del jruns
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (e) the WKV backward kernel's cases
+    grads = [wkv_grad_case(*case) for case in WKV_GRAD_CASES]
+    for v in grads:
+        errs = ", ".join(f"{k} {e:.3e}" for k, e in v["errs"].items())
+        log(f"kernel rwkv_wkv_backward {v['label']} b={v['b']} s={v['s']} "
+            f"h={v['h']} hd={v['hd']} chunk={v['chunk']} s0={v['s0']}: "
+            f"forward plan {v['body']} G={v['group']} groups={v['n_groups']}"
+            f": errors ({errs})"
+            f" (limit {v['limit']:.0e} of each result's largest |value|) "
+            f"planted_fault(drop_carry)={v['planted_fault']:.3e} "
+            f"{times_text(v)} (plain: autograd's backward through "
+            f"chunked_wkv_plain; no PyTorch call computes the gradient) "
+            f"kernels device ms {v['kernels_device_ms']} "
+            f"bound_ms={v['bound_ms']:.5f} ({v['bound_by']}) "
+            f"bytes={v['bytes']:.4g} flops={v['flops']:.4g}")
+    log(f"train_state phase: {time.perf_counter() - t_phase:.1f}s")
+    return paths, grads
 
 
 # ------------------------------------------------------------------ fleet
@@ -3265,6 +3640,9 @@ def main() -> int:
     log(f"resilient serve phase done at {time.perf_counter() - t_start:.1f}s")
     counts["qwen2_0_5b_train"], train_trace = train_qwen(mods)
     log(f"train phase done at {time.perf_counter() - t_start:.1f}s")
+    state_paths, wkv_grads = train_state(mods)
+    counts.update(state_paths)
+    log(f"train_state phase done at {time.perf_counter() - t_start:.1f}s")
     counts.update(fleet_phase(mods, train_trace))
     log(f"fleet phase done at {time.perf_counter() - t_start:.1f}s")
     serve_path = counts[f"mixtral_8x22b_{MIXTRAL_LAYERS}l"]
@@ -3272,12 +3650,13 @@ def main() -> int:
     # one line for every kernel: launches on the path that runs it (matmul:
     # the startup self-test; flash: the bf16 training run; paged and
     # grouped: the Mixtral bf16 serve; dense decode: the phi4 dense serve;
-    # the WKV: the rwkv6 bf16 serve),
+    # the WKV: the rwkv6 bf16 serve; its backward: the rwkv6 bf16 train),
     # a representative at that path's shapes (matmul: f32 128^3; flash:
     # bf16 causal at the training shape; paged: bf16 pages at Mixtral's
     # shapes, decode and the span at T=128; grouped: bf16, a 4-token decode
     # step's up projection; dense decode: bf16 at phi4's serving shape;
-    # the WKV: rwkv6's 1024-token bucketed prefill),
+    # the WKV: rwkv6's 1024-token bucketed prefill; its backward: rwkv6's
+    # training shape),
     # and every variant measured
     kernels = []
     for kname, replaces in KERNELS.items():
@@ -3313,6 +3692,14 @@ def main() -> int:
                     "front_pad", "in_place", "body", "group", "n_groups",
                     "blocks", "max_abs_err", "limit",
                     "planted_fault", "stale_fault", "ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by")
+        elif kname == "rwkv_wkv_backward":
+            main_path = counts["rwkv6_1_6b_train"]
+            mine = wkv_grads
+            rep = wkv_grads[0]
+            keys = ("label", "b", "s", "h", "hd", "chunk", "s0", "body",
+                    "group", "n_groups", "errs", "max_abs_err", "limit",
+                    "planted_fault", "kernels_device_ms", "ms", "plain_ms",
                     "library_ms", "bound_ms", "bound_by")
         elif kname == "sparse_gather_sum":
             main_path = counts["dlrm"]

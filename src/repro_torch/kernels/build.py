@@ -23,7 +23,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("paged_attention.cu", "grouped_gemm.cu", "flash_attention.cu",
            "matmul.cu", "decode_attention.cu", "rwkv_wkv.cu",
            "sparse_gather.cu", "paged_span_attention.cu",
-           "paged_decode_attention.cu")
+           "paged_decode_attention.cu", "rwkv_wkv_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -142,11 +142,24 @@ def rwkv_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Chunked RWKV-6 WKV. r, k, v, logw: (B,S,H,hd) f32, logw clamped to
     [-4, 0]; u: (H, hd); s0: (B,H,hd,hd) initial state (None: zeros);
     1 <= chunk <= 16 dividing S. ``state_out`` takes the final state and
-    may be s0 itself. Returns (out (B,S,H,hd), final state)."""
+    may be s0 itself. Returns (out (B,S,H,hd), final state).
+
+    "ref" is differentiated by autograd through the plain version, as the
+    reference differentiates ``_chunked_wkv``. "cuda" on inputs that need
+    a gradient runs ``rwkv_scan.WkvFunction``: the forward kernel, then
+    the backward kernel; it refuses ``state_out``, an in-place write that
+    autograd cannot follow."""
     _cuda_only(r, impl)
     if impl == "ref":
         return _rwkv.rwkv_wkv_plain(r, k, v, logw, u, s0, chunk=chunk,
                                     state_out=state_out)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (r, k, v, logw, u,
+                                                        s0)):
+        if state_out is not None:
+            raise ValueError("state_out is written in place: not with "
+                             "inputs that need a gradient")
+        return _rwkv.WkvFunction.apply(r, k, v, logw, u, s0, chunk)
     return _rwkv.rwkv_wkv(r, k, v, logw, u, s0, chunk=chunk,
                           state_out=state_out)
 

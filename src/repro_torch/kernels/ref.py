@@ -179,7 +179,7 @@ def rwkv_wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out_t = r_t (S + diag(u) k_t^T v_t), then S <- diag(exp(logw_t)) S +
     k_t^T v_t. Returns (BH, S, hd)."""
     bh, s, hd = r.shape
-    state = torch.zeros((bh, hd, hd), dtype=torch.float32, device=r.device)
+    state = torch.zeros((bh, hd, hd), dtype=r.dtype, device=r.device)
     outs = []
     for t in range(s):
         kv = k[:, t, :, None] * v[:, t, None, :]  # (BH, hd_k, hd_v)

@@ -11,7 +11,9 @@ CCI (gCO2e per EFLOP) applied to the run's 6 * N * tokens FLOPs, a figure
 for those FLOPs on an Ironwood pod, not a reading of this device.
 
 On the card the attention of the loss's forward runs the hand-written
-flash kernel, and ``build_trainer`` turns on PyTorch's deterministic mode
+flash kernel and the RWKV-6 WKV its forward and backward kernels; the
+Mamba and RWKV chunks are the reference trainer's (64 and 16). On the card
+``build_trainer`` turns on PyTorch's deterministic mode
 (``torch.use_deterministic_algorithms(True)``, with
 ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` unless already set): replay after a
 failure must reproduce the uninterrupted losses bit for bit, and the
@@ -90,7 +92,8 @@ def build_trainer(cfg: ModelConfig, *, batch: int, seq: int,
     dev = resolve_device(device)
     if dev.type == "cuda":
         deterministic_mode()
-    ctx = ModelContext(compute_dtype=compute_dtype, q_chunk=2048, device=dev)
+    ctx = ModelContext(compute_dtype=compute_dtype, q_chunk=2048,
+                       mamba_chunk=64, rwkv_chunk=16, device=dev)
     opt = make_optimizer(optimizer, total_steps=10_000)
     step_fn = make_train_step(cfg, ctx, opt,
                               TrainSettings(microbatches=microbatches))

@@ -6,8 +6,8 @@ stacked on a leading ``n_blocks`` axis, and lm.py runs a Python loop over
 that axis where the reference runs ``lax.scan``. A sublayer's core is
 attention, Mamba or the RWKV-6 time mix (``cfg.sublayer_kinds()``), its
 MLP a dense FFN, an MoE or, after an RWKV core, the RWKV channel mix.
-The full-sequence forward of the training loss takes attention stacks
-only. Serving has two layouts:
+The full-sequence forward of the training loss takes every kind. Serving
+has two layouts:
 
   * dense per-slot caches: attention k/v of shape (B, W, KV, D), a ring
     when a sliding window makes W smaller than the serve window (slot =
@@ -206,21 +206,25 @@ def attn_forward(p: Dict[str, Tensor], x: Tensor, cfg: ModelConfig,
 def sublayer_forward(p: Dict[str, Any], x: Tensor, cfg: ModelConfig,
                      ctx: ModelContext, idx: int
                      ) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """norm -> attention -> residual, norm -> MLP/MoE -> residual. MoE
-    sublayers run the capacity dispatch with its aux losses, as the
-    reference's training forward does. Training through Mamba and RWKV
-    sublayers is not ported yet."""
+    """norm -> attention, Mamba or the RWKV time mix -> residual, norm ->
+    the RWKV channel mix, MoE or dense MLP -> residual. MoE sublayers run
+    the capacity dispatch with its aux losses, as the reference's training
+    forward does."""
     kind = cfg.sublayer_kinds()[idx]
-    if kind != "attn":
-        raise NotImplementedError(
-            f"{cfg.name}: training through {kind} sublayers is not ported "
-            f"yet (ROADMAP.md Queue A, state-family training)")
     dtype = ctx.compute_dtype
     aux: Dict[str, Tensor] = {}
-    x = x + attn_forward(p["core"], rms_norm(x, p["ln1"], cfg.norm_eps),
-                         cfg, ctx)
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if kind == "attn":
+        core = attn_forward(p["core"], h, cfg, ctx)
+    elif kind == "mamba":
+        core = mamba_forward(p["core"], h, cfg, dtype, chunk=ctx.mamba_chunk)
+    else:  # rwkv
+        core = rwkv_time_mix(p["core"], h, cfg, ctx)
+    x = x + core
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    if cfg.sublayer_has_moe(idx):
+    if kind == "rwkv":
+        mlp = rwkv_channel_mix(p["mlp"], h, cfg, dtype)
+    elif cfg.sublayer_has_moe(idx):
         mlp, aux = moe_ffn(p["mlp"], h, cfg, dtype)
     else:
         mlp = dense_ffn(p["mlp"], h, cfg, dtype)

@@ -7,8 +7,11 @@ Prefill runs a chunked selective scan: a Python loop carries the
 within a chunk the linear recurrence h_t = dA_t * h_{t-1} + dBx_t is a
 log-step (Hillis-Steele) inclusive scan with the reference's combine
 ((a_l, b_l), (a_r, b_r)) -> (a_l a_r, b_l a_r + b_r), where the reference
-runs ``associative_scan``. The two trees add the same terms in another
-order, so they differ by fp32 rounding only. Decode is the single-step
+runs ``associative_scan``, and its running product of dA decays the
+incoming state where the reference runs ``cumprod``. The trees add and
+multiply the same terms in another order, so they differ by fp32
+rounding only. Training differentiates it with autograd, as the
+reference does with ``jax.grad``: no op is in place. Decode is the single-step
 recurrence against the cached (conv window, ssm state).
 """
 
@@ -59,9 +62,10 @@ def mamba_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     }
 
 
-def _inclusive_scan(a: Tensor, b: Tensor) -> Tensor:
+def _inclusive_scan(a: Tensor, b: Tensor) -> Tuple[Tensor, Tensor]:
     """h_t = a_t h_{t-1} + b_t from h_{-1} = 0 over axis 1, in
-    ceil(log2 T) steps of the reference's combine. Returns h (B,T,C,N)."""
+    ceil(log2 T) steps of the reference's combine. Returns (the inclusive
+    running product of a, h), each (B,T,C,N)."""
     t = a.shape[1]
     off = 1
     while off < t:
@@ -69,7 +73,7 @@ def _inclusive_scan(a: Tensor, b: Tensor) -> Tensor:
                       dim=1)
         a = torch.cat([a[:, :off], a[:, :-off] * a[:, off:]], dim=1)
         off *= 2
-    return b
+    return a, b
 
 
 def _ssm_scan_chunked(dA: Tensor, dBx: Tensor, h0: Tensor,
@@ -85,10 +89,13 @@ def _ssm_scan_chunked(dA: Tensor, dBx: Tensor, h0: Tensor,
     outs = []
     for c0 in range(0, s, chunk):
         a_ch, bx_ch = dA[:, c0:c0 + chunk], dBx[:, c0:c0 + chunk]
-        # the incoming state decayed through the chunk, plus the chunk's
-        # own recurrence from zero
-        carry_in = torch.cumprod(a_ch, dim=1) * h[:, None]
-        h_all = _inclusive_scan(a_ch, bx_ch) + carry_in
+        # the chunk's own recurrence from zero, plus the incoming state
+        # decayed through the chunk by the scan's running product of dA
+        # (the reference's cumprod, in the tree's order: torch.cumprod's
+        # gradient is a float cumsum, which the trainer's deterministic
+        # mode refuses on the card)
+        a_cum, h_intra = _inclusive_scan(a_ch, bx_ch)
+        h_all = h_intra + a_cum * h[:, None]
         h = h_all[:, -1]
         outs.append(h_all)
     return torch.cat(outs, dim=1), h

@@ -8,8 +8,11 @@ with w_t = exp(-exp(ww(x_t))) a per-channel, per-token decay and u a
 learned current-token bonus. The WKV runs through ``kernels.ops.rwkv_wkv``
 (the chunked CUDA kernel under ``attn_impl="cuda"``, its plain version
 under "ref") in f32, with the per-step log decay clamped at DECAY_CLAMP so
-that the chunk's exponents stay in f32 range. Decode carries (token
-shift, state): constant memory per sequence.
+that the chunk's exponents stay in f32 range. Training differentiates it
+through the backward kernel on the card ("cuda") and through autograd of
+the plain version under "ref", as the reference differentiates
+``_chunked_wkv``; the clamp's gradient is autograd's. Decode carries
+(token shift, state): constant memory per sequence.
 """
 
 from __future__ import annotations

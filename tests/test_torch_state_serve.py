@@ -275,13 +275,3 @@ def test_serve_launcher_smoke(arch, capsys):
     assert "'completions': 4" in out
     assert ("prefill_bucket_sizes=" in out) == (arch == "rwkv6_1_6b")
 
-
-def test_training_through_state_sublayers_is_not_ported_yet():
-    """State-family training is a later slice (ROADMAP.md Queue A): the
-    loss refuses Mamba and RWKV sublayers instead of running them."""
-    for arch in ARCHS:
-        cfg, _, tp = _model(arch)
-        tokens = torch.zeros((1, 8), dtype=torch.int32)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tapi.loss_fn(tp, {"tokens": tokens, "labels": tokens}, cfg,
-                         _ctxs()[1])
