@@ -167,7 +167,11 @@ result line):
                each one's largest |value| against wkv_backward_plain, a
                repeat bitwise, the planted fault failing, its time beside
                autograd's backward through the plain chunked WKV, each of
-               its four kernels' device time, and its byte bound;
+               its four kernels' device time, its scratch bytes and its
+               byte bound; then a sweep of the forward's group length G at
+               the training shape (the backward follows the forward's
+               groups): the backward's device ms and each kernel's at every
+               G, each held to the limit;
   8. fleet   - the fleet simulator fed by the card: (a) the bridge
                (fleet.run_bridge on the card: qwen2-smoke, 18 steps, a
                checkpoint every 6, failures {9: 0, 14: 1}; the real and
@@ -2771,6 +2775,12 @@ WKV_GRAD_CASES = (
 )
 STATE_TRAIN_STEPS = 6
 STATE_CHECK_LAYERS = 4  # of rwkv6's 24 in the f32 kernel-vs-plain runs
+# the kernels of csrc/rwkv_wkv_bwd.cu as torch.profiler names them
+WKV_BWD_KERNELS = ("wkv_bwd_local", "wkv_bwd_scan", "wkv_bwd_grad",
+                   "wkv_bwd_du")
+# the forward's group lengths the backward is swept over at the training
+# shape (the plan takes 8); "onepass" is one group of every chunk
+WKV_GRAD_SWEEP = (1, 2, 4, 8, 16, "onepass")
 
 
 def wkv_grad_case(label: str, b: int, s: int, h: int, hd: int, chunk: int,
@@ -2780,8 +2790,9 @@ def wkv_grad_case(label: str, b: int, s: int, h: int, hd: int, chunk: int,
     largest |value|, a repeat bitwise equal, the planted fault (every
     group's gradient walk started from zero) failing the limit; times
     (plain_ms: autograd's backward through chunked_wkv_plain, its graph
-    kept), each of its four kernels' device time, and the bound. No single
-    PyTorch call computes this gradient: library_ms is None."""
+    kept), each of its four kernels' device time, its scratch bytes, and
+    the bound. No single PyTorch call computes this gradient: library_ms is
+    None."""
     import torch
     from repro_torch.kernels import rwkv_scan
 
@@ -2839,12 +2850,7 @@ def wkv_grad_case(label: str, b: int, s: int, h: int, hd: int, chunk: int,
                                         retain_graph=True)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     times = case_times(run, plain, None, flush, plain_iters=5)
-    rows = _profiled(run, flush, 20)
-    parts = {}
-    for kernel in ("wkv_bwd_state", "wkv_bwd_scan", "wkv_bwd_grad",
-                   "wkv_bwd_du"):
-        mine = [(us, n) for name, us, n in rows if kernel in name]
-        parts[kernel] = round(sum(us / n for us, n in mine) / 1e3, 4)
+    parts = _wkv_bwd_parts(run, flush)
     del out, s_final, outs, plain, leaves
     n_groups = plan.n_groups if plan.body == "split" else 1
     # least time: r, k, v, logw and dout read once, dr, dk, dv and dlogw
@@ -2864,11 +2870,70 @@ def wkv_grad_case(label: str, b: int, s: int, h: int, hd: int, chunk: int,
         "body": plan.body, "group": plan.group, "n_groups": n_groups,
         "errs": errs, "max_abs_err": abs_err,
         "limit": WKV_GRAD_LIMIT, "planted_fault": planted,
-        "kernels_device_ms": parts, **times,
+        "kernels_device_ms": parts,
+        "scratch_bytes": rwkv_scan.backward_scratch_bytes(plan, b, h, hd),
+        **times,
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "flops": flops,
     }
+
+
+def _wkv_bwd_parts(run, flush):
+    """Each backward kernel's device ms a call (0 where a plan does not
+    launch it), from one profile of 20 L2-flushed calls."""
+    rows = _profiled(run, flush, 20)
+    parts = {}
+    for kernel in WKV_BWD_KERNELS:
+        mine = [(us, n) for name, us, n in rows if kernel in name]
+        parts[kernel] = round(sum(us / n for us, n in mine) / 1e3, 4)
+    return parts
+
+
+def wkv_grad_sweep(b: int, s: int, h: int, hd: int, chunk: int) -> None:
+    """The backward's device ms after the forward forced to each group
+    length of WKV_GRAD_SWEEP, each of its kernels' device ms, and its
+    scratch bytes, each run's six results held to WKV_GRAD_LIMIT against
+    one wkv_backward_plain: the measurement behind keeping the forward's
+    MAX_GROUP for the training step."""
+    import torch
+    from repro_torch.kernels import rwkv_scan
+
+    r, k, v, lw, u, s0 = _wkv_inputs(b, s, h, hd, False, False, seed=5)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(6)
+    dout = torch.randn((b, s, h, hd), generator=g, device="cuda")
+    want = rwkv_scan.wkv_backward_plain(r, k, v, lw, u, s0, dout, None,
+                                        chunk=chunk)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    planned = rwkv_scan.wkv_plan(b, s, h, hd, chunk)
+    readings = []
+    for group in WKV_GRAD_SWEEP:
+        plan = (rwkv_scan.make_plan("onepass", b, s, h, hd, chunk)
+                if group == "onepass" else
+                rwkv_scan.make_plan("split", b, s, h, hd, chunk, group=group))
+        _, _, states, _ = rwkv_scan._forward(r, k, v, lw, u, s0, chunk=chunk,
+                                             plan=plan)
+        run = lambda: rwkv_scan.rwkv_wkv_backward(
+            r, k, v, lw, u, s0, dout, None, chunk=chunk, states=states,
+            plan=plan)
+        err = max(float((x - y).abs().max()) / max(1.0, float(y.abs().max()))
+                  for x, y in zip(run(), want))
+        if err > WKV_GRAD_LIMIT:
+            raise AssertionError(f"wkv backward sweep G={group}: {err} > "
+                                 f"{WKV_GRAD_LIMIT}")
+        parts = _wkv_bwd_parts(run, flush)
+        readings.append(
+            f"G={plan.group} ({plan.n_groups} groups) "
+            f"{device_ms(run, flush):.4f} {parts} scratch "
+            f"{rwkv_scan.backward_scratch_bytes(plan, b, h, hd)} B "
+            f"err {err:.2e}")
+        del states
+    torch.cuda.empty_cache()
+    log(f"kernel rwkv_wkv_backward sweep b={b} s={s} h={h} hd={hd} "
+        f"chunk={chunk}, device ms a call by the forward's group length: "
+        + "; ".join(readings) + f"; the plan takes {planned.body} "
+        f"G={planned.group}")
 
 
 def _f32_state_run(label, mods, cfg, impl, pipe, steps, need):
@@ -3093,8 +3158,10 @@ def train_state(mods):
             f"{times_text(v)} (plain: autograd's backward through "
             f"chunked_wkv_plain; no PyTorch call computes the gradient) "
             f"kernels device ms {v['kernels_device_ms']} "
+            f"scratch_bytes={v['scratch_bytes']} "
             f"bound_ms={v['bound_ms']:.5f} ({v['bound_by']}) "
             f"bytes={v['bytes']:.4g} flops={v['flops']:.4g}")
+    wkv_grad_sweep(*WKV_GRAD_CASES[0][1:6])
     log(f"train_state phase: {time.perf_counter() - t_phase:.1f}s")
     return paths, grads
 
@@ -3699,7 +3766,8 @@ def main() -> int:
             rep = wkv_grads[0]
             keys = ("label", "b", "s", "h", "hd", "chunk", "s0", "body",
                     "group", "n_groups", "errs", "max_abs_err", "limit",
-                    "planted_fault", "kernels_device_ms", "ms", "plain_ms",
+                    "planted_fault", "kernels_device_ms", "scratch_bytes",
+                    "ms", "plain_ms",
                     "library_ms", "bound_ms", "bound_by")
         elif kname == "sparse_gather_sum":
             main_path = counts["dlrm"]

@@ -26,7 +26,8 @@ The gradient: the TPU kernel has none (the reference trains through
 ``wkv_backward_plain`` writes the gradient of ``chunked_wkv_plain`` out
 chunk by chunk, and ``rwkv_wkv_backward`` runs it through the kernels of
 ``csrc/rwkv_wkv_bwd.cu`` on CUDA tensors, starting from the group start
-states that the forward's split body leaves in its scratch. ``WkvFunction``
+states that the forward's split body leaves in its scratch; its own scratch
+(``backward_scratch``) follows the forward's groups. ``WkvFunction``
 is the autograd function of the kernel route: the forward kernel, keeping
 those states, then the backward kernel; each backward call adds one to
 ``launches["rwkv_wkv_backward"]``.
@@ -35,6 +36,7 @@ those states, then the backward kernel; each backward call adds one to
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -95,7 +97,7 @@ def _lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = load(BWD_SOURCE)
     if lib.rwkv_wkv_backward.argtypes is None:
-        lib.rwkv_wkv_backward.argtypes = ([ctypes.c_void_p] * 18
+        lib.rwkv_wkv_backward.argtypes = ([ctypes.c_void_p] * 17
                                           + [ctypes.c_int] * 8
                                           + [ctypes.c_void_p])
         lib.rwkv_wkv_backward.restype = ctypes.c_int
@@ -472,6 +474,23 @@ def wkv_backward_plain(r: Tensor, k: Tensor, v: Tensor, logw: Tensor,
             dlogw.reshape(shape), du, grad)
 
 
+def backward_scratch(plan: WkvPlan, b: int, h: int, hd: int
+                     ) -> Dict[str, Tuple[int, ...]]:
+    """The backward kernels' scratch after a forward of ``plan``: for
+    each of the forward's groups (one for a one-pass or decode forward), a
+    gradient slot of hd + 1 rows of hd (the group's contribution and decay,
+    then its end gradient) and a share of du. Nothing scales with the
+    chunks: no chunk's state is stored."""
+    ng = plan.n_groups if plan.body == "split" else 1
+    return {"grads": (b, h, ng, hd + 1, hd), "du_parts": (b, h, ng, hd)}
+
+
+def backward_scratch_bytes(plan: WkvPlan, b: int, h: int, hd: int) -> int:
+    """Bytes of ``backward_scratch`` (f32)."""
+    return sum(4 * math.prod(shape)
+               for shape in backward_scratch(plan, b, h, hd).values())
+
+
 def rwkv_wkv_backward(r: Tensor, k: Tensor, v: Tensor, logw: Tensor,
                       u: Tensor, s0: Optional[Tensor], d_out: Tensor,
                       d_state: Optional[Tensor] = None, *, chunk: int,
@@ -517,11 +536,9 @@ def rwkv_wkv_backward(r: Tensor, k: Tensor, v: Tensor, logw: Tensor,
     dr, dk, dv, dlogw = (torch.empty_like(r) for _ in range(4))
     du = torch.empty((h, hd), **f32)
     ds0 = torch.empty((b, h, hd, hd), **f32) if need_ds0 else None
-    # each group's gradient contribution and decay, then its end gradient;
-    # each chunk's start state and the final state; each group's du
-    g_scratch = torch.empty((b, h, n_groups, hd + 1, hd), **f32)
-    c_states = torch.empty((b, h, nc + 1, hd, hd), **f32)
-    du_part = torch.empty((b, h, n_groups, hd), **f32)
+    scratch = backward_scratch(plan, b, h, hd)
+    g_scratch = torch.empty(scratch["grads"], **f32)
+    du_part = torch.empty(scratch["du_parts"], **f32)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -530,7 +547,7 @@ def rwkv_wkv_backward(r: Tensor, k: Tensor, v: Tensor, logw: Tensor,
     rc = _bwd_lib().rwkv_wkv_backward(
         ptr(r), ptr(k), ptr(v), ptr(logw), ptr(u), ptr(s0), ptr(states),
         ptr(d_out), ptr(d_state), ptr(dr), ptr(dk), ptr(dv), ptr(dlogw),
-        ptr(du), ptr(ds0), ptr(g_scratch), ptr(c_states), ptr(du_part),
+        ptr(du), ptr(ds0), ptr(g_scratch), ptr(du_part),
         b, s, h, hd, chunk, group, n_groups, int(drop_carry), stream)
     if rc != 0:
         raise RuntimeError(f"rwkv_wkv_backward kernel launch failed ({plan}"

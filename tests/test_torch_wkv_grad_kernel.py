@@ -12,6 +12,10 @@ same card: each of dr, dk, dv, dlogw, du and ds0 within WKV_GRAD_LIMIT of
 its largest |value| (at least 1). A repeat is bitwise equal (no atomics);
 the planted fault (every group's gradient walk started from zero) fails
 the limit wherever there is a later group or a final-state cotangent.
+The same checks run at groups of RING - 1, RING and RING + 1 chunks (the
+kernels stage chunks in a cp.async ring of RING; the backward walk's first
+chunk is the forward walk's last, still staged), after a split forward and
+after a one-pass forward of that many chunks, at hd 16 and 64.
 ``ops.rwkv_wkv`` on CUDA inputs that need a gradient goes through
 ``WkvFunction``: an rwkv6 smoke model's loss gives its WKV leaves nonzero
 gradients through one backward launch a layer, within the limit of the
@@ -60,6 +64,16 @@ def _plans(b, s, h, hd, chunk):
 
 CASE_PLANS = [(case, name) for case in sorted(CASES)
               for name in _plans(*CASES[case][:5])]
+
+
+# the chunks the backward kernels' cp.async ring stages (kStages)
+RING = 2
+# (B, S, H, hd, chunk, body, G): groups of RING - 1, RING and RING + 1
+# chunks at hd 16 and 64, split (7 chunks: groups that do and do not divide
+# them) and one pass (a single group of that many chunks)
+RING_CASES = [(2, s, 4, hd, 16, body, g)
+              for hd in (16, 64) for g in (RING - 1, RING, RING + 1)
+              for body, s in (("split", 112), ("onepass", 16 * g))]
 
 
 @pytest.fixture
@@ -131,6 +145,27 @@ def test_planted_fault_fails(cuda, case, name):
         assert reading > WKV_GRAD_LIMIT
     else:  # one group and no final-state cotangent: nothing to drop
         assert reading <= WKV_GRAD_LIMIT
+
+
+@pytest.mark.parametrize("case", RING_CASES)
+def test_backward_at_ring_depth(cuda, case):
+    b, s, h, hd, chunk, body, group = case
+    plan = rwkv_scan.make_plan(body, b, s, h, hd, chunk,
+                               group=group if body == "split" else None)
+    assert plan.group == group
+    args = _inputs(cuda, b, s, h, hd, True, seed=s + hd + group)
+    got = _backward(plan, args, chunk)
+    want = rwkv_scan.wkv_backward_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    for n, g, w in zip(NAMES, got, want):
+        assert bool(torch.isfinite(g).all()), n
+        assert _err(g, w) <= WKV_GRAD_LIMIT, (n, _err(g, w))
+    again = _backward(plan, args, chunk)
+    for n, g, a in zip(NAMES, got, again):
+        assert torch.equal(g, a), n
+    bad = _backward(plan, args, chunk, drop_carry=True)
+    assert max(_err(g, w) for g, w in zip(bad[:4], want[:4])) > \
+        WKV_GRAD_LIMIT
 
 
 def test_no_ds0(cuda):
