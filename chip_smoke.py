@@ -172,6 +172,27 @@ result line):
                the training shape (the backward follows the forward's
                groups): the backward's device ms and each kernel's at every
                G, each held to the limit;
+  7c. train_encdec - the encoder-decoder and M-RoPE families through the
+               training loss: (a) full-size Whisper-small (12 + 12
+               layers, d 768, 1500 frames) through build_trainer +
+               ResilientTrainer.run at batch 8 x 448 decoder tokens, bf16
+               compute, 6 steps through the flash kernel (launches = 2 x
+               (12 + 2 x 12) x steps: the encoder's bidirectional layers,
+               the decoder's causal and cross attention, forward and the
+               layer checkpoint's recompute): step times, median, tok/s,
+               peak memory, one profiled window of 2 steps (busy share,
+               time by class) and the plain attention backward's time at
+               the three shapes (CUDA events), scaled to a step; (b)
+               Whisper f32 (TF32 off) 3 steps at batch 2 x 448 through
+               attn_impl "cuda" and "ref" from the same parameters: losses
+               within rel 1e-4, grad norms within rel 1e-3, flash launches
+               only on the kernel route; (c) a failure replay at 2 + 2
+               layers bit-identical to the uninterrupted run; (d)
+               Qwen2-VL-7B at full width cut to 2 of its 28 layers, f32
+               kernel vs plain at batch 1 x 1024 on image-grid M-RoPE rows
+               (vl_rows), the limits of (b); (e) the port's serve_decode
+               and failure_recovery examples on the card (the latter must
+               print "loss trajectories identical: True");
   8. fleet   - the fleet simulator fed by the card: (a) the bridge
                (fleet.run_bridge on the card: qwen2-smoke, 18 steps, a
                checkpoint every 6, failures {9: 0, 14: 1}; the real and
@@ -898,11 +919,14 @@ def flash_splits(q, k, v, causal, window):
 
 
 def flash_case(dtype: str, *, causal: bool = True, window=None, bh: int = 56,
-               s: int = 2048, d: int = 64, seed: int = 0):
+               s: int = 2048, d: int = 64, drop_key_fault: bool = False,
+               seed: int = 0):
     """The flash kernel at one shape: max error against its plain version
     (bf16: also row by row, and with a window, the reading of the kernel
-    run with the window one key off, which must fail the limit), times of
-    both and of SDPA on the same inputs, and the bound."""
+    run with the window one key off, which must fail the limit; with
+    ``drop_key_fault``, the reading of the kernel told S_k - 1 keys, which
+    must fail it too), times of both and of SDPA on the same inputs, and
+    the bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as flash
@@ -930,18 +954,24 @@ def flash_case(dtype: str, *, causal: bool = True, window=None, bh: int = 56,
                              f"causal={causal} window={window}: "
                              f"max_abs_err {err} (limit {TOL[dtype]}), "
                              f"row steps {steps} (limit {FLASH_ROW_C})")
-    # a planted fault: the window one key short and one key long
-    planted = []
+    # a planted fault: the window one key short and one key long, or the
+    # kernel told S_k - 1 keys
+    planted, faults = [], []
     for w in ((window - 1, window + 1) if window is not None else ()):
-        bad = flash.flash_attention(q, k, v, causal=causal, window=w)
+        faults.append((f"window {w} instead of {window}",
+                       dict(causal=causal, window=w)))
+    if drop_key_fault:
+        faults.append(("S_k - 1 keys", dict(causal=causal, window=window,
+                                            drop_last_key=True)))
+    for what, kw in faults:
+        bad = flash.flash_attention(q, k, v, **kw)
         bad_err = float((bad.float() - want.float()).abs().max())
         reading = (row_steps(bad, want) if dtype == "bf16" else bad_err)
         planted.append(reading)
         if bad_err <= TOL[dtype] and (dtype != "bf16"
                                       or reading <= FLASH_ROW_C):
-            raise AssertionError(f"flash_attention {dtype}: window {w} "
-                                 f"instead of {window} passes the limit "
-                                 f"({reading})")
+            raise AssertionError(f"flash_attention {dtype} bh={bh} s={s}: "
+                                 f"{what} passes the limit ({reading})")
     # SDPA on the same (BH, S, D) inputs: the library's time. A window
     # needs a materialized boolean mask, which rules out SDPA's flash
     # backend: that reading is a handicapped yardstick
@@ -974,7 +1004,8 @@ def flash_case(dtype: str, *, causal: bool = True, window=None, bh: int = 56,
                                                                   causal,
                                                                   window),
         "max_abs_err": err,
-        "row_steps": steps, "planted_fault": planted, **times,
+        "row_steps": steps, "planted_fault": planted,
+        "fault": "; ".join(what for what, _ in faults) or "none", **times,
         "library": ("SDPA, materialized mask (no flash backend)"
                     if mask is not None else "SDPA"),
         "bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -2234,6 +2265,22 @@ def whisper_launches(label, engine, counts) -> None:
             f"{counts['flash_attention']} != {flash}")
 
 
+def vl_rows(s: int, start: int, grid: int):
+    """(3, S) int32 M-RoPE rows shaped like Qwen2-VL's: text up to
+    ``start``, a grid x grid merged image (t fixed, h and w in raster
+    order), then text from the image's largest row + 1."""
+    import numpy as np
+    t = np.arange(s, dtype=np.int32)
+    rows = np.stack([t, t, t])
+    img = np.arange(grid * grid)
+    rows[0, start:start + grid * grid] = start
+    rows[1, start:start + grid * grid] = start + img // grid
+    rows[2, start:start + grid * grid] = start + img % grid
+    rows[:, start + grid * grid:] = start + grid + np.arange(
+        s - start - grid * grid)
+    return rows
+
+
 def vl_requests(cfg, seed: int, n: int = 8, max_new: int = 32,
                 grid: int = 16, shared: int = 64):
     """n prompts of 100-600 tokens sharing a ``shared``-token system
@@ -2253,16 +2300,7 @@ def vl_requests(cfg, seed: int, n: int = 8, max_new: int = 32,
                                  rng.integers(0, cfg.vocab_size, s - shared)])
         r = Request(rid=rid, prompt=prompt, max_new=max_new)
         if rid % 2:
-            t = np.arange(s, dtype=np.int32)
-            rows = np.stack([t, t, t])
-            img = np.arange(grid * grid)
-            rows[0, shared:shared + grid * grid] = shared
-            rows[1, shared:shared + grid * grid] = shared + img // grid
-            rows[2, shared:shared + grid * grid] = shared + img % grid
-            nxt = shared + grid
-            rows[:, shared + grid * grid:] = nxt + np.arange(
-                s - shared - grid * grid)
-            r.extras["positions"] = rows[:, None, :]
+            r.extras["positions"] = vl_rows(s, shared, grid)[:, None, :]
         reqs.append(r)
     return reqs
 
@@ -2624,6 +2662,87 @@ def train_run(label, mods, trainer, state, steps, need):
     return state, ledger, losses, counts
 
 
+def replay_run(label, mods, cfg, ckpt_dir, *, seq, checkpoint_every, steps,
+               need):
+    """A run with a cube failure at step 5 against an uninterrupted one,
+    each through build_trainer (f32, batch 2, checkpoints every
+    ``checkpoint_every`` steps under ``ckpt_dir``): the losses must be
+    bit-identical, with steps replayed. Returns (the losses, the clean
+    run's ledger, the failure run's ledger, its replay summary)."""
+    import torch
+    from repro_torch.launch.train import build_trainer
+    res = {}
+    for name, failures in (("clean", None), ("failure", {5: 3})):
+        trainer, state = build_trainer(
+            cfg, batch=2, seq=seq, ckpt_dir=str(ckpt_dir / name),
+            checkpoint_every=checkpoint_every, failures=failures,
+            device="cuda")
+        _, ledger, losses, _ = train_run(f"{label}_{name}", mods, trainer,
+                                         state, steps, need)
+        res[name] = (losses, ledger, trainer.replay_summary())
+        del trainer, state
+        torch.cuda.empty_cache()
+    (l1, led1, _), (l2, led2, rs) = res["clean"], res["failure"]
+    if l1 != l2 or rs["replayed_steps"] == 0:
+        raise AssertionError(f"{label} replay: {l1} vs {l2}, {rs}")
+    return l2, led1, led2, rs
+
+
+def _f32_steps(mods, cfg, pipe, steps, impl, rows=None):
+    """``steps`` f32 train steps (TF32 off) of ``cfg`` through the train
+    step build_trainer makes, with attention route ``impl``, from the
+    seed-0 parameters; ``rows`` (3, B, S) replace the pipeline's M-RoPE
+    rows. Returns ([(loss, grad_norm)], the launch counts)."""
+    import torch
+    from repro_torch.launch.train import make_optimizer
+    from repro_torch.models.blocks import ModelContext
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    opt = make_optimizer("adamw", total_steps=10_000)
+    ctx = ModelContext(compute_dtype=torch.float32, q_chunk=2048,
+                       attn_impl=impl, device="cuda")
+    step = make_train_step(cfg, ctx, opt)
+    state = init_train_state(0, cfg, opt, device="cuda")
+    reset_counts(mods)
+    out = []
+    for i in range(steps):
+        batch = pipe.batch_for_step(i)
+        if rows is not None:
+            batch["positions"] = rows
+        state, m = step(state, batch)
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    counts = read_counts(mods)
+    del state
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def _f32_kernel_vs_plain(label, mods, cfg, pipe, steps, rows=None):
+    """``_f32_steps`` with attn_impl "cuda" and then "ref". Losses within
+    rel 1e-4 and grad norms within rel 1e-3 (the train phase's limits);
+    flash launches only on the kernel route. Returns ({impl: [(loss,
+    grad_norm)]}, the kernel route's counts)."""
+    runs, counts = {}, {}
+    for impl in ("cuda", "ref"):
+        runs[impl], counts[impl] = _f32_steps(mods, cfg, pipe, steps, impl,
+                                              rows)
+        if (counts[impl]["flash_attention"] > 0) != (impl == "cuda"):
+            raise AssertionError(f"{label} {impl}: flash launches "
+                                 f"{counts[impl]}")
+    for (lk, gk), (lr, gr) in zip(runs["cuda"], runs["ref"]):
+        if not (math.isfinite(lk) and abs(lk - lr) <= 1e-4 * abs(lr)
+                and abs(gk - gr) <= 1e-3 * gr):
+            raise AssertionError(f"{label} kernel vs plain: {runs}")
+    return runs, counts["cuda"]
+
+
+def _rel_gaps(runs, ref):
+    """The largest relative gaps of losses and of grad norms between two
+    runs of ``_f32_steps``."""
+    return (max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(runs, ref)),
+            max(abs(a[1] - b[1]) / b[1] for a, b in zip(runs, ref)))
+
+
 def train_qwen(mods):
     """This slice's path: full-width, full-depth qwen2-0.5B training through
     the flash kernel. Returns the launch counts of its bf16 run and that
@@ -2633,9 +2752,7 @@ def train_qwen(mods):
     import torch
     from repro_torch.configs.registry import get_arch
     from repro_torch.data.pipeline import DataConfig, DataPipeline
-    from repro_torch.launch.train import build_trainer, make_optimizer
-    from repro_torch.models.blocks import ModelContext
-    from repro_torch.train.step import init_train_state, make_train_step
+    from repro_torch.launch.train import build_trainer
 
     cfg = get_arch("qwen2_0_5b")
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
@@ -2707,48 +2824,16 @@ def train_qwen(mods):
 
         # 2. f32, TF32 off: 3 steps through the kernel vs the plain path,
         # each the train step build_trainer makes, from the same params
-        runs = {}
-        opt = make_optimizer("adamw", total_steps=10_000)
         pipe = DataPipeline(DataConfig(global_batch=2, seq_len=TRAIN_SEQ,
                                        vocab_size=cfg.vocab_size), cfg)
-        for impl in ("cuda", "ref"):
-            ctx = ModelContext(compute_dtype=torch.float32, q_chunk=2048,
-                               attn_impl=impl, device="cuda")
-            step = make_train_step(cfg, ctx, opt)
-            state = init_train_state(0, cfg, opt, device="cuda")
-            reset_counts(mods)
-            out = []
-            for i in range(3):
-                state, m = step(state, pipe.batch_for_step(i))
-                out.append((float(m["loss"]), float(m["grad_norm"])))
-            c = read_counts(mods)["flash_attention"]
-            if (c > 0) != (impl == "cuda"):
-                raise AssertionError(f"f32 {impl}: flash launches {c}")
-            runs[impl] = out
-            del state
-            torch.cuda.empty_cache()
-        for (lk, gk), (lr, gr) in zip(runs["cuda"], runs["ref"]):
-            if abs(lk - lr) > 1e-4 * abs(lr) or abs(gk - gr) > 1e-3 * gr:
-                raise AssertionError(f"f32 kernel vs plain: {runs}")
+        runs, _ = _f32_kernel_vs_plain("train f32", mods, cfg, pipe, 3)
         log(f"train[f32 kernel vs plain, batch 2 x {TRAIN_SEQ}]: (loss, "
             f"grad_norm) kernel {runs['cuda']} plain {runs['ref']}")
 
         # 3. failure + restore + replay == uninterrupted, bit for bit
-        cfg2 = dataclasses.replace(cfg, n_layers=2)
-        res = {}
-        for label, failures in (("clean", None), ("failure", {5: 3})):
-            trainer, state = build_trainer(
-                cfg2, batch=2, seq=512, ckpt_dir=str(tmp / label),
-                checkpoint_every=2, failures=failures, device="cuda")
-            _, ledger, losses, c = train_run(
-                f"train_f32_{label}", mods, trainer, state, 7,
-                ("flash_attention",))
-            res[label] = (losses, ledger, trainer.replay_summary())
-            del trainer, state
-            torch.cuda.empty_cache()
-        (l1, led1, _), (l2, led2, rs) = res["clean"], res["failure"]
-        if l1 != l2 or rs["replayed_steps"] == 0:
-            raise AssertionError(f"replay: {l1} vs {l2}, {rs}")
+        l2, led1, led2, rs = replay_run(
+            "train_f32", mods, dataclasses.replace(cfg, n_layers=2), tmp,
+            seq=512, checkpoint_every=2, steps=7, need=("flash_attention",))
         log(f"train[f32 failure at step 5, ckpt every 2, 2 layers]: losses "
             f"bit-identical to the uninterrupted run {l2}; {rs}; goodput "
             f"{led2.goodput:.4f} vs {led1.goodput:.4f}; ledger "
@@ -3107,21 +3192,10 @@ def train_state(mods):
         # (c) failure + restore + replay == uninterrupted, bit for bit; a
         # checkpoint every 4 steps, since each writes ~4.4 GB of f32 state
         # (the 65536-row embedding and head dominate at 2 layers)
-        cfg2 = dataclasses.replace(cfg, n_layers=2)
-        res = {}
-        for label, failures in (("clean", None), ("failure", {5: 3})):
-            trainer, state = build_trainer(
-                cfg2, batch=2, seq=512, ckpt_dir=str(tmp / label),
-                checkpoint_every=4, failures=failures, device="cuda")
-            _, ledger, losses, c = train_run(
-                f"train_state_f32_{label}", mods, trainer, state, 6,
-                ("rwkv_wkv", "rwkv_wkv_backward"))
-            res[label] = (losses, ledger, trainer.replay_summary())
-            del trainer, state
-            torch.cuda.empty_cache()
-        (l1, led1, _), (l2, led2, rs) = res["clean"], res["failure"]
-        if l1 != l2 or rs["replayed_steps"] == 0:
-            raise AssertionError(f"rwkv6 replay: {l1} vs {l2}, {rs}")
+        l2, led1, led2, rs = replay_run(
+            "train_state_f32", mods, dataclasses.replace(cfg, n_layers=2),
+            tmp, seq=512, checkpoint_every=4, steps=6,
+            need=("rwkv_wkv", "rwkv_wkv_backward"))
         log(f"train_state[rwkv6 f32 failure at step 5, ckpt every 4, 2 "
             f"layers]: losses bit-identical to the uninterrupted run {l2}; "
             f"{rs}; goodput {led2.goodput:.4f} vs {led1.goodput:.4f}")
@@ -3164,6 +3238,210 @@ def train_state(mods):
     wkv_grad_sweep(*WKV_GRAD_CASES[0][1:6])
     log(f"train_state phase: {time.perf_counter() - t_phase:.1f}s")
     return paths, grads
+
+
+# ------------------------------------------------------------ train_encdec
+
+ENCDEC_BATCH, ENCDEC_SEQ, ENCDEC_STEPS = 8, 448, 6
+VL_TRAIN_LAYERS = 2  # of Qwen2-VL-7B's 28 in the f32 kernel-vs-plain runs
+VL_TRAIN_SEQ = 1024
+
+
+def _attention_backward_ms(cfg, batch: int, seq: int) -> dict:
+    """The plain attention backward (``_FlashAttention.backward``: the
+    q-chunked plain path's gradient, recomputed) at Whisper's three
+    training shapes in bf16, ms a call by CUDA events over 5 L2-flushed
+    calls: the encoder's self attention, the decoder's causal one and its
+    cross attention."""
+    import torch
+    from repro_torch.models.attention import _FlashAttention
+    h, d = cfg.n_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for name, sq, sk, atype in (("encoder", cfg.encoder_seq,
+                                 cfg.encoder_seq, "bidirectional"),
+                                ("decoder", seq, seq, "causal"),
+                                ("cross", seq, cfg.encoder_seq,
+                                 "bidirectional")):
+        q, k, v = (torch.randn((batch, s_, h, d), generator=gen,
+                               device="cuda", dtype=torch.bfloat16)
+                   .requires_grad_() for s_ in (sq, sk, sk))
+        o = _FlashAttention.apply(q, k, v, atype, None, 2048, "cuda")
+        g = torch.randn_like(o)
+        out[name] = timed_ms(
+            lambda: torch.autograd.grad(o, (q, k, v), g, retain_graph=True),
+            flush, iters=5, warmup=1)
+        del q, k, v, o, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_encdec(mods):
+    """This slice's path: the encoder-decoder and M-RoPE families through
+    the training loss. (a) full-size Whisper-small, bf16, through the
+    flash kernel; (b) Whisper f32 kernel vs plain; (c) Whisper's failure
+    replay at 2 + 2 layers; (d) Qwen2-VL-7B at full width, 2 of 28
+    layers, f32 kernel vs plain on image-grid rows; (e) the port's
+    serve_decode and failure_recovery examples on the card. Returns the
+    launch counts of each run by path."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    from repro_torch.examples import failure_recovery, serve_decode
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.launch.train import build_trainer
+
+    t_phase = time.perf_counter()
+    cfg = get_arch("whisper_small")
+    paths = {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_encdec_ckpt_"))
+    try:
+        # (a) bf16 compute, f32 parameters and optimizer state
+        trainer, state = build_trainer(
+            cfg, batch=ENCDEC_BATCH, seq=ENCDEC_SEQ,
+            ckpt_dir=str(tmp / "bf16"), checkpoint_every=10_000,
+            compute_dtype=torch.bfloat16, device="cuda")
+        n_params = _param_count(state["params"])
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, ledger, losses, counts = train_run(
+            "train_encdec_bf16", mods, trainer, state, ENCDEC_STEPS,
+            ("flash_attention",))
+        wall = time.perf_counter() - t0
+        per_step = cfg.encoder_layers + 2 * cfg.n_layers
+        want = 2 * per_step * ENCDEC_STEPS  # forward + recompute
+        if counts["flash_attention"] != want:
+            raise AssertionError(f"whisper flash launches {counts} != "
+                                 f"{want}")
+        paths["whisper_small_train"] = counts
+        times = sorted(r.duration_s for r in trainer.records)
+        steady = times[len(times) // 2]
+        tokens = ENCDEC_BATCH * ENCDEC_SEQ
+        log(f"train_encdec[whisper_small bf16]: {cfg.encoder_layers} + "
+            f"{cfg.n_layers} layers, {n_params} params, batch "
+            f"{ENCDEC_BATCH} x {ENCDEC_SEQ} decoder tokens over "
+            f"{cfg.encoder_seq} frames, {ENCDEC_STEPS} steps in "
+            f"{wall:.3f}s; sorted step times "
+            f"{[round(t * 1e3, 1) for t in times]} ms; median step "
+            f"{steady * 1e3:.2f}ms {tokens / steady:.0f} decoder tok/s "
+            f"{ENCDEC_BATCH * cfg.encoder_seq / steady:.0f} frames/s; "
+            f"losses {[round(x, 4) for x in losses]}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+            f"launches={counts} ({per_step} a forward: "
+            f"{cfg.encoder_layers} encoder, {cfg.n_layers} causal, "
+            f"{cfg.n_layers} cross)")
+        # one window of two steps under the profiler, after one
+        # unreported step under it
+        with device_profiler():
+            state, m = trainer.train_step(
+                state, trainer.pipeline.batch_for_step(ENCDEC_STEPS))
+            float(m["loss"])
+        batches = [trainer.pipeline.batch_for_step(ENCDEC_STEPS + 1 + i)
+                   for i in range(2)]
+        torch.cuda.synchronize()
+        with device_profiler() as prof:
+            t0 = time.perf_counter()
+            for b in batches:
+                state, m = trainer.train_step(state, b)
+                float(m["loss"])
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t0
+        busy = read_profile(prof, pwall, top=20)
+        log(f"train_encdec[whisper_small bf16] device busy "
+            f"{100 * busy:.1f} % of a profiled window of 2 steps "
+            f"({pwall:.4f} s against 2 x the unprofiled median step "
+            f"{2 * steady:.4f} s); device time by class: "
+            f"{device_classes(prof)}")
+        del trainer, state, prof
+        torch.cuda.empty_cache()
+        bwd = _attention_backward_ms(cfg, ENCDEC_BATCH, ENCDEC_SEQ)
+        step_bwd = (bwd["encoder"] * cfg.encoder_layers
+                    + (bwd["decoder"] + bwd["cross"]) * cfg.n_layers)
+        log(f"train_encdec[whisper_small bf16] plain attention backward "
+            f"(ms a call, CUDA events): {bwd}; x layers = "
+            f"{step_bwd:.2f} ms a step, {100 * step_bwd / 1e3 / steady:.1f}"
+            f" % of the median step")
+
+        # (b) f32, TF32 off: kernel vs plain from the same parameters
+        pipe = DataPipeline(DataConfig(global_batch=2, seq_len=ENCDEC_SEQ,
+                                       vocab_size=cfg.vocab_size), cfg)
+        runs, c = _f32_kernel_vs_plain("whisper f32", mods, cfg, pipe, 3)
+        paths["whisper_small_train_f32"] = c
+        log(f"train_encdec[whisper f32 kernel vs plain, batch 2 x "
+            f"{ENCDEC_SEQ}]: (loss, grad_norm) kernel {runs['cuda']} plain "
+            f"{runs['ref']}; launches={c}; rel gaps (loss, grad_norm) "
+            f"{_rel_gaps(runs['cuda'], runs['ref'])}")
+        # a reading, not a check: the same kernel route with the cross
+        # attention's kernel told S_k - 1 keys, to see whether these
+        # limits would catch a wrong cross-attention kernel (the kernel
+        # cases hold the kernel itself to its limits)
+        real = flash.flash_attention
+        flash.flash_attention = lambda q, k, v, **kw: real(
+            q, k, v, drop_last_key=k.shape[1] != q.shape[1], **kw)
+        try:
+            bad, _ = _f32_steps(mods, cfg, pipe, 3, "cuda")
+        finally:
+            flash.flash_attention = real
+        gaps = _rel_gaps(bad, runs["ref"])
+        caught = gaps[0] > 1e-4 or gaps[1] > 1e-3
+        log(f"train_encdec[whisper f32, planted fault: cross attention "
+            f"told S_k - 1 keys]: (loss, grad_norm) {bad}; rel gaps "
+            f"(loss, grad_norm) to plain {gaps} (limits 1e-4, 1e-3): "
+            f"{'caught' if caught else 'NOT caught'} by the training "
+            f"comparison")
+
+        # (c) failure + restore + replay == uninterrupted, bit for bit
+        l2, led1, led2, rs = replay_run(
+            "train_encdec_f32", mods,
+            dataclasses.replace(cfg, n_layers=2, encoder_layers=2), tmp,
+            seq=ENCDEC_SEQ, checkpoint_every=2, steps=7,
+            need=("flash_attention",))
+        log(f"train_encdec[whisper f32 failure at step 5, ckpt every 2, "
+            f"2 + 2 layers]: losses bit-identical to the uninterrupted run "
+            f"{l2}; {rs}; goodput {led2.goodput:.4f} vs "
+            f"{led1.goodput:.4f}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (d) Qwen2-VL-7B at full width, 2 of its 28 layers, on image-grid rows
+    # (64 text tokens, a 16 x 16 image, then text): text rows would reduce
+    # M-RoPE to RoPE
+    vcfg = dataclasses.replace(get_arch("qwen2_vl_7b"),
+                               n_layers=VL_TRAIN_LAYERS)
+    vpipe = DataPipeline(DataConfig(global_batch=1, seq_len=VL_TRAIN_SEQ,
+                                    vocab_size=vcfg.vocab_size), vcfg)
+    rows = vl_rows(VL_TRAIN_SEQ, 64, 16)[:, None, :]
+    runs, c = _f32_kernel_vs_plain("qwen2-vl f32", mods, vcfg, vpipe, 3,
+                                   rows=np.ascontiguousarray(rows))
+    paths[f"qwen2_vl_7b_{VL_TRAIN_LAYERS}l_train_f32"] = c
+    log(f"train_encdec[qwen2_vl_7b f32 kernel vs plain, full width cut to "
+        f"{VL_TRAIN_LAYERS} of 28 layers, batch 1 x {VL_TRAIN_SEQ}, "
+        f"image-grid rows (64 text, 16 x 16 image, text)]: (loss, "
+        f"grad_norm) kernel {runs['cuda']} plain {runs['ref']}; "
+        f"launches={c}")
+
+    # (e) the port's two example twins on the card
+    reset_counts(mods)
+    lines = _captured(lambda: serve_decode.main([]), "serve_decode")
+    paths["serve_decode"] = read_counts(mods)
+    if len(lines) != 3:
+        raise AssertionError(f"serve_decode printed {lines}")
+    reset_counts(mods)
+    ok = _captured(lambda: failure_recovery.main([]), "failure_recovery")
+    paths["failure_recovery"] = read_counts(mods)
+    if ok is not True or paths["failure_recovery"]["flash_attention"] == 0:
+        raise AssertionError(f"failure_recovery: {ok}, "
+                             f"{paths['failure_recovery']}")
+    log(f"train_encdec[examples]: serve_decode launches="
+        f"{paths['serve_decode']}; failure_recovery launches="
+        f"{paths['failure_recovery']}")
+    log(f"train_encdec phase: {time.perf_counter() - t_phase:.1f}s")
+    return paths
 
 
 # ------------------------------------------------------------------ fleet
@@ -3408,6 +3686,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     global FLASH_ROW_C, row_steps
     from repro_torch.kernels.ref import FLASH_ROW_C, row_steps
+    from repro_torch.configs.registry import get_arch
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as kern
     from repro_torch.kernels import flash_attention as flash
@@ -3622,12 +3901,24 @@ def main() -> int:
     # Whisper's cross-attention: S_k = 1500 encoder frames
     flashes += [flash_cross_case(dt, sq) for dt in ("bf16", "f32")
                 for sq in (64, 448)]
+    # Whisper-small training's three attentions at its batch (BH 8 x 12
+    # heads, no key-range split): the encoder's 1500 frames
+    # (bidirectional), the decoder's 448 tokens (causal) and the cross
+    # attention (448 queries over 1500 frames); each must fail the limits
+    # when the kernel is told S_k - 1 keys
+    wcfg = get_arch("whisper_small")
+    wbh, frames = ENCDEC_BATCH * wcfg.n_heads, wcfg.encoder_seq
+    for dt in ("bf16", "f32"):
+        flashes += [flash_case(dt, bh=wbh, s=frames, causal=False,
+                               drop_key_fault=True),
+                    flash_case(dt, bh=wbh, s=ENCDEC_SEQ, drop_key_fault=True),
+                    flash_cross_case(dt, ENCDEC_SEQ, sk=frames, bh=wbh)]
     for v in flashes:
         log(f"kernel flash_attention {v['dtype']} bh={v['bh']} s={v['s']} "
             f"sk={v.get('sk', v['s'])} "
             f"d={v['d']} causal={v['causal']} window={v['window']}: "
             f"max_abs_err={v['max_abs_err']:.3e} row_steps={v['row_steps']} "
-            f"planted_fault({v.get('fault', 'window-1, window+1')})="
+            f"planted_fault({v['fault']})="
             f"{v['planted_fault']} {times_text(v)} "
             f"({v.get('library', 'SDPA')}) "
             f"bound_ms={v['bound_ms']:.4f} ({v['bound_by']}) "
@@ -3710,6 +4001,8 @@ def main() -> int:
     state_paths, wkv_grads = train_state(mods)
     counts.update(state_paths)
     log(f"train_state phase done at {time.perf_counter() - t_start:.1f}s")
+    counts.update(train_encdec(mods))
+    log(f"train_encdec phase done at {time.perf_counter() - t_start:.1f}s")
     counts.update(fleet_phase(mods, train_trace))
     log(f"fleet phase done at {time.perf_counter() - t_start:.1f}s")
     serve_path = counts[f"mixtral_8x22b_{MIXTRAL_LAYERS}l"]

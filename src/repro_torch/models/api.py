@@ -1,8 +1,9 @@
 """Family-agnostic model API of the port (``repro.models.api``): specs,
-the training loss, and serving on dense caches (prefill, front-padded for
-state-family stacks, decode, span decode; the encoder-decoder family's
-prefill and decode) and on the paged pool. Encoder-decoder vs
-decoder-only dispatch happens here."""
+the training loss (decoder-only stacks, M-RoPE rows included, and the
+encoder-decoder family), and serving on dense caches (prefill,
+front-padded for state-family stacks, decode, span decode; the
+encoder-decoder family's prefill and decode) and on the paged pool.
+Encoder-decoder vs decoder-only dispatch happens here."""
 
 from __future__ import annotations
 
@@ -21,9 +22,7 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 def loss_fn(params, batch, cfg: ModelConfig, ctx: ModelContext):
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: training encoder-decoder models is not ported yet "
-            f"(ROADMAP Queue A, encoder-decoder and M-RoPE training)")
+        return encdec.encdec_loss(params, batch, cfg, ctx)
     return lm.lm_loss(params, batch, cfg, ctx)
 
 

@@ -191,20 +191,23 @@ def _project_qkv(p: Dict[str, Tensor], x: Tensor, cfg: ModelConfig,
 
 
 def attn_forward(p: Dict[str, Tensor], x: Tensor, cfg: ModelConfig,
-                 ctx: ModelContext, attn_type: Optional[str] = None
-                 ) -> Tensor:
+                 ctx: ModelContext, attn_type: Optional[str] = None,
+                 mrope_positions: Optional[Tensor] = None) -> Tensor:
+    """``mrope_positions`` (3,B,S): explicit M-RoPE rows (None: text
+    rows at the absolute positions)."""
     b, s, _ = x.shape
     dtype = ctx.compute_dtype
     q, k, v = _project_qkv(p, x, cfg, dtype)
     positions = torch.arange(s, device=x.device).expand(b, s)
-    q, k = apply_positional(q, k, cfg, positions)
+    q, k = apply_positional(q, k, cfg, positions, mrope_positions)
     out = full_attention(q, k, v, cfg, q_chunk=ctx.q_chunk,
                          attn_type=attn_type, impl=ctx.attn_impl)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dtype))
 
 
 def sublayer_forward(p: Dict[str, Any], x: Tensor, cfg: ModelConfig,
-                     ctx: ModelContext, idx: int
+                     ctx: ModelContext, idx: int,
+                     mrope_positions: Optional[Tensor] = None
                      ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """norm -> attention, Mamba or the RWKV time mix -> residual, norm ->
     the RWKV channel mix, MoE or dense MLP -> residual. MoE sublayers run
@@ -215,7 +218,8 @@ def sublayer_forward(p: Dict[str, Any], x: Tensor, cfg: ModelConfig,
     aux: Dict[str, Tensor] = {}
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "attn":
-        core = attn_forward(p["core"], h, cfg, ctx)
+        core = attn_forward(p["core"], h, cfg, ctx,
+                            mrope_positions=mrope_positions)
     elif kind == "mamba":
         core = mamba_forward(p["core"], h, cfg, dtype, chunk=ctx.mamba_chunk)
     else:  # rwkv
@@ -232,10 +236,12 @@ def sublayer_forward(p: Dict[str, Any], x: Tensor, cfg: ModelConfig,
 
 
 def block_forward(block_params: Dict[str, Any], x: Tensor, cfg: ModelConfig,
-                  ctx: ModelContext) -> Tuple[Tensor, Dict[str, Tensor]]:
+                  ctx: ModelContext, mrope_positions: Optional[Tensor] = None
+                  ) -> Tuple[Tensor, Dict[str, Tensor]]:
     aux_total: Dict[str, Tensor] = {}
     for i in range(cfg.block_len):
-        x, aux = sublayer_forward(block_params[f"sl{i}"], x, cfg, ctx, i)
+        x, aux = sublayer_forward(block_params[f"sl{i}"], x, cfg, ctx, i,
+                                  mrope_positions)
         for key, val in aux.items():
             aux_total[key] = aux_total.get(key, 0.0) + val
     return x, aux_total

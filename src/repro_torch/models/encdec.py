@@ -1,5 +1,5 @@
-"""Encoder-decoder transformer for serving (the Whisper backbone;
-``repro.models.encdec`` without the training loss).
+"""Encoder-decoder transformer (the Whisper backbone;
+``repro.models.encdec``): the training loss and serving.
 
 The audio frontend is a stub, as in the reference: requests bring
 precomputed frame embeddings (B, encoder_seq, d_model), what Whisper's two
@@ -8,13 +8,19 @@ MLP, LayerNorm, learned positions. Decoder: causal self-attention, cross
 attention over the encoder states, GELU MLP.
 
 A Python loop over the stacked layer axis replaces the reference's
-``lax.scan``. The decode cache holds the self-attention ring (B, W, KV, D)
-and the cross-attention k/v (B, encoder_seq, KV, D), fixed after prefill;
-decode updates the ring in place. Under ``attn_impl="cuda"`` every
-attention goes through a kernel: the flash kernel in prefill (the
-encoder's bidirectional layers, the decoder's causal ones and the cross
-attention, whose keys are the encoder's 1500 frames), the dense decode
-kernel twice per layer and step (the ring, then the cross k/v).
+``lax.scan``. The training loss wraps each encoder and decoder layer in
+``torch.utils.checkpoint`` where the reference wraps the scan body in
+``jax.checkpoint``; the encoder is one function for the loss and for
+serving, checkpointed only for the loss. The decode cache holds the
+self-attention ring (B, W, KV, D) and the cross-attention k/v (B,
+encoder_seq, KV, D), fixed after prefill; decode updates the ring in
+place. Under ``attn_impl="cuda"`` every
+attention goes through a kernel: the flash kernel in the loss's forward
+and in prefill (the encoder's bidirectional layers, the decoder's causal
+ones and the cross attention, whose keys are the encoder's 1500 frames;
+the loss's backward is the plain path's gradient, see
+attention._FlashAttention), the dense decode kernel twice per layer and
+step (the ring, then the cross k/v).
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.attention import decode_attention, full_attention
@@ -30,9 +37,10 @@ from repro_torch.models.blocks import (ModelContext, TensorSpec,
                                        init_cache, stack_specs)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import dense_ffn, dense_ffn_specs
-from repro_torch.models.ops import embed_lookup, layer_norm
+from repro_torch.models.ops import (embed_lookup, layer_norm,
+                                    softmax_cross_entropy)
 from repro_torch.models.params import (ParamSpec, normal_init, ones_init,
-                                       tree_index, zeros_init)
+                                       tree_index, unstack, zeros_init)
 
 Tensor = torch.Tensor
 
@@ -107,18 +115,76 @@ def _enc_kv(p, enc_out: Tensor, cfg: ModelConfig, ctx: ModelContext
     return k, v
 
 
+def _cross_attn(p, x: Tensor, enc_kv: Tuple[Tensor, Tensor],
+                cfg: ModelConfig, ctx: ModelContext) -> Tensor:
+    """Cross attention of the decoder states x over the encoder's k/v:
+    bidirectional, S_k (the encoder's frames) != S_q."""
+    dtype = ctx.compute_dtype
+    k, v = enc_kv
+    out = full_attention(_cross_q(p, x, cfg, dtype), k, v, cfg,
+                         q_chunk=ctx.q_chunk, attn_type="bidirectional",
+                         impl=ctx.attn_impl)
+    return _out_proj(p, out, dtype)
+
+
+def _remat(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward pass
+    (the reference's ``jax.checkpoint`` around a scan body)."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _enc_layer(lp, x: Tensor, cfg: ModelConfig, ctx: ModelContext
+               ) -> Tensor:
+    h = _ln(lp["ln1"], x, cfg.norm_eps)
+    x = x + _self_attn(lp["attn"], h, cfg, ctx, "bidirectional")[0]
+    h = _ln(lp["ln2"], x, cfg.norm_eps)
+    return x + dense_ffn(lp["mlp"], h, cfg, ctx.compute_dtype)
+
+
 def encode(params, enc_feats: Tensor, cfg: ModelConfig,
-           ctx: ModelContext) -> Tensor:
-    """enc_feats (B, encoder_seq, d_model) -> encoder states, normed."""
+           ctx: ModelContext, remat: bool = False) -> Tensor:
+    """enc_feats (B, encoder_seq, d_model) -> encoder states, normed.
+    ``remat`` checkpoints each layer (the training loss)."""
     dtype = ctx.compute_dtype
     x = enc_feats.to(dtype) + params["enc_pos"].to(dtype)
-    for layer in range(cfg.encoder_layers):
-        lp = tree_index(params["enc_blocks"], layer)
-        h = _ln(lp["ln1"], x, cfg.norm_eps)
-        x = x + _self_attn(lp["attn"], h, cfg, ctx, "bidirectional")[0]
-        h = _ln(lp["ln2"], x, cfg.norm_eps)
-        x = x + dense_ffn(lp["mlp"], h, cfg, dtype)
+    for lp in unstack(params["enc_blocks"], cfg.encoder_layers):
+        x = (_remat(_enc_layer, lp, x, cfg, ctx) if remat
+             else _enc_layer(lp, x, cfg, ctx))
     return _ln(params["enc_norm"], x, cfg.norm_eps)
+
+
+def _dec_layer(lp, x: Tensor, enc_out: Tensor, cfg: ModelConfig,
+               ctx: ModelContext) -> Tensor:
+    """A decoder layer of the training loss: causal self attention, cross
+    attention over the encoder states, the GELU MLP."""
+    h = _ln(lp["ln1"], x, cfg.norm_eps)
+    x = x + _self_attn(lp["attn"], h, cfg, ctx, "causal")[0]
+    h = _ln(lp["lnx"], x, cfg.norm_eps)
+    x = x + _cross_attn(lp["xattn"], h,
+                        _enc_kv(lp["xattn"], enc_out, cfg, ctx), cfg, ctx)
+    h = _ln(lp["ln2"], x, cfg.norm_eps)
+    return x + dense_ffn(lp["mlp"], h, cfg, ctx.compute_dtype)
+
+
+def encdec_loss(params, batch: Dict[str, Tensor], cfg: ModelConfig,
+                ctx: ModelContext) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Token-mean next-token cross entropy of the decoder over
+    ``batch["tokens"]`` (B, S), given the frames ``batch["enc_feats"]``.
+    Returns (loss, metrics) with metrics xent, loss and tokens, as the
+    reference."""
+    tokens = batch["tokens"]
+    dtype = ctx.compute_dtype
+    enc_out = encode(params, batch["enc_feats"], cfg, ctx, remat=True)
+    x = embed_lookup(params["embed"], tokens, dtype)
+    x = x + params["dec_pos"][:tokens.shape[1]].to(dtype)
+    for lp in unstack(params["dec_blocks"], cfg.n_layers):
+        x = _remat(_dec_layer, lp, x, enc_out, cfg, ctx)
+    x = _ln(params["final_norm"], x, cfg.norm_eps)
+    logits = x @ params["lm_head"].to(dtype)
+    loss, count = softmax_cross_entropy(logits, batch["labels"],
+                                        batch.get("loss_mask"))
+    return loss, {"xent": loss, "loss": loss, "tokens": count}
 
 
 def encdec_cache_spec(cfg: ModelConfig, batch: int, window: int,
@@ -154,10 +220,7 @@ def encdec_prefill(params, batch: Dict[str, Tensor], cfg: ModelConfig,
         x = x + out
         h = _ln(lp["lnx"], x, cfg.norm_eps)
         xk, xv = _enc_kv(lp["xattn"], enc_out, cfg, ctx)
-        xo = full_attention(_cross_q(lp["xattn"], h, cfg, dtype), xk, xv,
-                            cfg, q_chunk=ctx.q_chunk,
-                            attn_type="bidirectional", impl=ctx.attn_impl)
-        x = x + _out_proj(lp["xattn"], xo, dtype)
+        x = x + _cross_attn(lp["xattn"], h, (xk, xv), cfg, ctx)
         h = _ln(lp["ln2"], x, cfg.norm_eps)
         x = x + dense_ffn(lp["mlp"], h, cfg, dtype)
         lc["k"][:, :take] = k[:, s - take:].to(cdt)

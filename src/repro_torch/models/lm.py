@@ -28,7 +28,8 @@ from repro_torch.models.blocks import (ModelContext, TensorSpec,
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ops import (embed_lookup, rms_norm,
                                     softmax_cross_entropy)
-from repro_torch.models.params import ParamSpec, ones_init, tree_index
+from repro_torch.models.params import (ParamSpec, ones_init, tree_index,
+                                       unstack)
 
 Tensor = torch.Tensor
 
@@ -56,19 +57,10 @@ def _logits(params: Dict[str, Any], x: Tensor, cfg: ModelConfig,
     return x @ head
 
 
-def _unstack(tree: Any, n: int) -> List[Any]:
-    """Per-layer views of a stacked tree: one ``unbind`` per leaf, whose
-    backward stacks the layers' gradients in a single copy (indexing
-    layer by layer would add a full stacked-size zero tensor per layer)."""
-    if isinstance(tree, dict):
-        subs = {k: _unstack(v, n) for k, v in tree.items()}
-        return [{k: subs[k][i] for k in subs} for i in range(n)]
-    return list(tree.unbind(0))
-
-
 def _block_body(bp: Dict[str, Any], x: Tensor, cfg: ModelConfig,
-                ctx: ModelContext) -> Tuple[Tensor, Dict[str, Tensor]]:
-    x, aux = block_forward(bp, x, cfg, ctx)
+                ctx: ModelContext, mrope_positions: Optional[Tensor]
+                ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    x, aux = block_forward(bp, x, cfg, ctx, mrope_positions)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, {k: aux[k].float() if k in aux else zero for k in AUX_WEIGHTS}
 
@@ -79,15 +71,13 @@ def lm_loss(params: Dict[str, Any], batch: Dict[str, Tensor],
     """Token-mean next-token cross entropy plus the weighted MoE aux
     losses (each the mean over layers; 0 for dense layers). Returns
     (loss, metrics) with metrics xent, tokens, load_balance, router_z,
-    loss."""
-    if batch.get("positions") is not None:
-        raise NotImplementedError(
-            "training with mrope position rows is not ported yet (ROADMAP "
-            "Queue A, encoder-decoder and M-RoPE training)")
+    loss. ``batch["positions"]`` (3,B,S), when present, are explicit
+    M-RoPE rows (None: text rows)."""
+    mrope = batch.get("positions")
     x = embed_lookup(params["embed"], batch["tokens"], ctx.compute_dtype)
     auxs: Dict[str, List[Tensor]] = {k: [] for k in AUX_WEIGHTS}
-    for bp in _unstack(params["blocks"], cfg.n_blocks):
-        x, aux = checkpoint(_block_body, bp, x, cfg, ctx,
+    for bp in unstack(params["blocks"], cfg.n_blocks):
+        x, aux = checkpoint(_block_body, bp, x, cfg, ctx, mrope,
                             use_reentrant=False, preserve_rng_state=False)
         for k in AUX_WEIGHTS:
             auxs[k].append(aux[k])

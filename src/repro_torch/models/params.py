@@ -11,7 +11,7 @@ keeping the stacked leading ``n_blocks`` axis of ``blocks.stack_specs``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -92,6 +92,16 @@ def tree_index(tree: Any, i: int) -> Any:
     """Slice every leaf of a stacked tree at index ``i`` of its leading
     axis (one layer's parameters or pages; views, no copies)."""
     return tree_map(lambda x: x[i], tree)
+
+
+def unstack(tree: Any, n: int) -> List[Any]:
+    """Per-layer views of a stacked tree: one ``unbind`` per leaf, whose
+    backward stacks the layers' gradients in a single copy (indexing
+    layer by layer would add a full stacked-size zero tensor per layer)."""
+    if isinstance(tree, dict):
+        subs = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: subs[k][i] for k in subs} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def _fold_path(seed: int, path: str) -> int:

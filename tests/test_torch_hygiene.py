@@ -13,7 +13,8 @@ import torch
 
 from repro_torch.configs.registry import get_smoke
 from repro_torch.core.sdc import FBIST
-from repro_torch.examples import dlrm_sparsecore, quickstart
+from repro_torch.examples import (dlrm_sparsecore, failure_recovery,
+                                  quickstart, serve_decode)
 from repro_torch.fleet import run_bridge
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import trace_gate
@@ -80,6 +81,10 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
         startup_bist()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dlrm_sparsecore.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_decode.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        failure_recovery.main([])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FBIST().run(lambda a, b: a @ b)
     with pytest.raises(RuntimeError, match="no CUDA device"):

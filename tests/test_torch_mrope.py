@@ -13,6 +13,7 @@
   requests neither publish nor adopt prefix pages: the text half shares a
   prefix and hits, the explicit half (the same tokens) never does.
 * ``generate`` and ``generate_pertoken`` with a ``positions`` batch key.
+* The training loss with explicit rows (loss rtol 2e-5).
 
 fp32 with ``jax_default_matmul_precision="highest"``."""
 
@@ -303,11 +304,20 @@ def test_generate_with_positions_on_two_rows_matches_jax(vl):
             te.generate_pertoken(tp, batch, max_new=5).numpy(), want)
 
 
-def test_training_with_position_rows_is_not_ported_yet(vl):
-    cfg, _, tp = vl
-    toks = torch.zeros((1, 6), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.loss_fn(tp, {"tokens": toks, "labels": toks,
-                          "positions": torch.zeros((3, 1, 6),
-                                                   dtype=torch.int32)},
-                     cfg, _ctxs()[1])
+def test_training_with_position_rows_matches_jax(vl):
+    """The training loss honours explicit (3,B,S) rows as the reference's
+    does (gradients: tests/test_torch_encdec_train.py)."""
+    cfg, jp, tp = vl
+    jctx, tctx = _ctxs()
+    toks = np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (2, 13)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "positions": vl_positions(12, b=2)}
+    jl, jm = japi.loss_fn(jp, {k: jnp.asarray(v)
+                               for k, v in batch.items()}, cfg, jctx)
+    tl, tm = tapi.loss_fn(tp, {k: torch.from_numpy(v)
+                               for k, v in batch.items()}, cfg, tctx)
+    assert set(tm) == set(jm)
+    for key in jm:
+        np.testing.assert_allclose(float(tm[key]), float(jm[key]),
+                                   rtol=2e-5, atol=1e-7, err_msg=key)

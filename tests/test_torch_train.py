@@ -7,6 +7,8 @@
   each gradient leaf within 1e-4 of its largest entry.
 * One AdamW and one Adafactor update on the same gradients, the cosine
   schedule and global-norm clipping: rtol 1e-5 (fp32 rounding).
+* The masked loss on qwen2 smoke and on whisper smoke (the
+  encoder-decoder family; its gradients: test_torch_encdec_train.py).
 * Data tokens: bit-identical.
 * A 5-step ``make_train_step`` loss trajectory: rtol 1e-4 on step 0 and
   1e-3 after (fp32 differences compound through the updates).
@@ -19,7 +21,6 @@
 fp32 with ``jax_default_matmul_precision="highest"``.
 """
 
-import dataclasses
 import os
 
 import jax
@@ -120,9 +121,21 @@ def test_loss_mask_and_encdec():
                            "loss_mask": torch.from_numpy(mask)}, cfg, TCTX)
     np.testing.assert_allclose(float(tl), float(jl), rtol=2e-5)
     assert float(tm["tokens"]) == float(jm["tokens"]) == 29.0
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        tapi.loss_fn({}, {}, dataclasses.replace(cfg, encoder_layers=2),
-                     TCTX)
+    # the encoder-decoder family trains: whisper smoke's masked loss
+    wcfg, wjp, wnpp = _model("whisper_small")
+    frames = np.random.default_rng(4).standard_normal(
+        (2, wcfg.encoder_seq, wcfg.d_model)).astype(np.float32) * 0.1
+    wbatch = {**_batch(wcfg, seed=3), "loss_mask": mask,
+              "enc_feats": frames}
+    jl, jm = japi.loss_fn(wjp, {k: jnp.asarray(v)
+                                for k, v in wbatch.items()}, wcfg, JCTX)
+    tl, tm = tapi.loss_fn(params_from_numpy(wnpp, device="cpu"),
+                          {k: torch.from_numpy(v)
+                           for k, v in wbatch.items()},
+                          get_smoke("whisper_small"), TCTX)
+    assert set(tm) == set(jm) == {"xent", "loss", "tokens"}
+    np.testing.assert_allclose(float(tl), float(jl), rtol=2e-5)
+    assert float(tm["tokens"]) == float(jm["tokens"]) == 29.0
 
 
 def _opt_case(seed=0):
