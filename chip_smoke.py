@@ -132,6 +132,33 @@ result line):
                the chaos run at bf16 for timing (host seconds in CRC
                verification); fp8 weights; the serve launcher with
                --bist --chaos --ttft-deadline --spec-off-depth --quantize;
+  6b. multi-device - (a) full-width qwen2-0.5B disaggregated (bf16, the
+               qwen serve's 8 requests, 2 modeled prefill workers) on the
+               "ici" and "dcn" links: tokens equal to the co-located
+               serve's, 8 transfers, stalls, one host drain a chunk; then
+               the chaos plan (prefill-worker kills, transfer drops, page
+               flips, stragglers) over "dcn": at bf16 a reading (a replay
+               re-prefills its generated tokens as a span, which rounds
+               otherwise), at f32 on the resilient phase's requests with
+               survivors' tokens equal to the fault-free run's; then
+               serving meshes whose ranks share the card (one process
+               each, gloo on CUDA tensors, parameters
+               built by each rank from the seed, leaf by leaf, after the
+               solo references are computed and freed; a rank that fails
+               fails the phase): (b) qwen2-0.5B on (1, 2), all 24 layers:
+               f32 with draft_k 2 run twice (tokens equal to the solo f32
+               engine's on every rank, prefix hits on the second run),
+               bf16 (tok/s, the share of tokens equal to the solo bf16
+               serve's, each rank's paged-kernel launches), and (f) in the
+               same ranks make_compressed_grad_fn over the 2 ranks within
+               1e-6 of one rank's arithmetic; then 4 ranks: (d)
+               Mixtral's smoke widths (h 8, kv 2) on (1, 4), the GQA
+               fallback: tokens equal to solo's, the kv_heads rule
+               reported dropped; and (c) Mixtral-8x22B at full width, 2 of
+               56 layers, f32 on (2, 2) (experts over "data"; heads, KV
+               heads and vocabulary over "model"), run twice: every rank's
+               tokens equal to the solo f32 engine's on both runs, the
+               grouped GEMM's launches per rank;
   7. train   - full-width, full-depth qwen2-0.5B from seeded random weights
                through build_trainer + ResilientTrainer.run at batch
                4 x seq 2048, bf16 compute: step p50/p95, tok/s, MFU, then
@@ -282,6 +309,17 @@ planted faults (each rank skipping its last stage; the merge leaving out
 the last rank holding keys, a bitwise no-op where no row's keys span two
 ranks), the device time of paged_attention.cu's wmma body on the same
 inputs (the body the decode took before) and a sweep of the splits.
+The kernels phase also holds the paged kernels at the serving mesh's
+per-rank shapes on model=2 (e): qwen2-0.5B's decode at 7 query heads over
+1 KV head (bf16 and int8 pages) and Mixtral's 128-token span at 24 over
+4, each against the plain version on the rank's inputs and against the
+same heads of the plain version over the whole pool, the kernel reading
+another rank's KV-head block failing the limit (a planted fault); and
+the grouped GEMM under expert parallelism on data=2 (rank 0's 4 of
+Mixtral's 8 experts, about half the tiles -1; bf16 and f32, a decode
+step and a 128-token chunk, up and down), the ranks' plain outputs
+summing to the one-device product, a non-local tile given a real expert
+id failing the limit (a planted fault).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -520,17 +558,19 @@ def paged_inputs(name: str, pages: str, *, t: int, d: int = 64,
 
 
 def kernel_case(kern, name: str, pages: str, *, t: int, d: int = 64,
-                window=None, fault: bool = False, **shape):
+                window=None, fault: bool = False, inputs=None, **shape):
     """One kernel variant at serving shapes: returns its report dict.
-    ``shape`` as paged_inputs takes it. The span's bf16 and int8 cases are
-    also held row by row, like the flash cases; with ``fault`` the span
-    kernel also runs with the window one key short and one key long, a
-    planted fault that must fail that limit."""
+    ``shape`` as paged_inputs takes it (``inputs``: paged_inputs' dict,
+    made already). The span's bf16 and int8 cases are also held row by
+    row, like the flash cases; with ``fault`` the span kernel also runs
+    with the window one key short and one key long, a planted fault that
+    must fail that limit."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
 
-    x = paged_inputs(name, pages, t=t, d=d, window=window, **shape)
+    x = inputs if inputs is not None else paged_inputs(
+        name, pages, t=t, d=d, window=window, **shape)
     q, k, v, ks, vs = x["q"], x["k"], x["v"], x["ks"], x["vs"]
     table, pos, qpos, dtype = x["table"], x["pos"], x["qpos"], x["dtype"]
     b, h, kv, max_ctx, trimmed = (x["b"], x["h"], x["kv"], x["max_ctx"],
@@ -687,6 +727,74 @@ def decode_body(kern, x, window, decode, got, want, pages, flush):
     return out
 
 
+def shard_inputs(x, m: int, idx: int):
+    """Rank ``idx`` of ``m`` along "model"'s share of a paged case's
+    inputs, as the serving mesh hands them to the kernel: its block of the
+    query heads and a contiguous pool of its KV-head block (split with the
+    heads where the KV heads divide ``m``, else the GQA fallback's
+    group-aligned block). Returns (inputs, (first KV head, KV heads))."""
+    from repro_torch.kernels.ops import local_kv_block, paged_partition
+    h, kv = x["h"], x["kv"]
+    _, hm, kvm, _, _ = paged_partition({"model": m}, "data", "model",
+                                       x["b"], h, kv)
+    if hm is None:
+        raise AssertionError(f"{h} heads do not split over model={m}")
+    hl = h // m
+    start, n = ((idx * (kv // m), kv // m) if kvm is not None
+                else local_kv_block(h, kv, m, idx))
+    block = slice(start, start + n)
+    out = dict(x, h=hl, kv=n,
+               q=x["q"][:, :, idx * hl:(idx + 1) * hl].contiguous())
+    for key in ("k", "v", "ks", "vs"):
+        if x[key] is not None:
+            out[key] = x[key][:, :, block].contiguous()
+    return out, (start, n)
+
+
+def shard_kernel_case(kern, name: str, pages: str, *, t: int, m: int,
+                      d: int = 64, window=None, **shape):
+    """A paged kernel at one rank's shape on a (1, m) serving mesh: rank
+    0's query heads over its KV-head block, held to the plain version on
+    those inputs (kernel_case: limits, times, bound) and to the same heads
+    of the plain version over the whole pool. A planted fault, the kernel
+    reading another rank's KV-head block, must fail the limit."""
+    import torch
+    x = paged_inputs(name, pages, t=t, d=d, window=window, **shape)
+    local, (start, n) = shard_inputs(x, m, 0)
+    v = kernel_case(kern, name, pages, t=t, d=d, window=window,
+                    inputs=local)
+    wrong, (wstart, _) = shard_inputs(x, m, m - 1)
+    wrong["q"] = local["q"]
+    outs = {}
+    for label, y in (("full", x), ("local", local), ("wrong", wrong)):
+        kw = dict(k_scale=y["ks"], v_scale=y["vs"], window=window)
+        if name == "paged_decode_attention":
+            fn = kern.paged_decode_attention_plain if label == "full" \
+                else kern.paged_decode_attention
+            outs[label] = fn(y["q"][:, 0], y["k"], y["v"], y["table"],
+                             y["pos"], **kw).float()
+        else:
+            fn = kern.paged_decode_span_attention_plain if label == "full" \
+                else kern.paged_decode_span_attention
+            outs[label] = fn(y["q"], y["k"], y["v"], y["table"], y["pos"],
+                             **kw).float()
+    torch.cuda.synchronize()
+    want = outs["full"][..., :local["h"], :]
+    full_err = float((outs["local"] - want).abs().max())
+    block_fault = float((outs["wrong"] - want).abs().max())
+    if full_err > TOL[pages]:
+        raise AssertionError(f"{name} {pages} shard of model={m}: "
+                             f"{full_err} from the whole pool's heads")
+    if block_fault <= TOL[pages]:
+        raise AssertionError(f"{name} {pages} shard of model={m}: the KV "
+                             f"block of rank {m - 1} passes ({block_fault})")
+    v.update(shard=f"rank 0 of model={m}: heads {local['h']} of "
+                   f"{x['h']}, KV heads {start}..{start + n - 1} of "
+                   f"{x['kv']}", full_pool_err=full_err,
+             planted_fault_block=block_fault, wrong_block_start=wstart)
+    return v
+
+
 def gemm_inputs(xdt: str, wdt: str, *, t: int, d: int, f: int, e: int = 8,
                 k: int = 2, bm: int = 8, seed: int = 0):
     """Inputs of a grouped MoE GEMM case on the card: t tokens routed
@@ -719,20 +827,40 @@ def gemm_inputs(xdt: str, wdt: str, *, t: int, d: int, f: int, e: int = 8,
 
 def gemm_case(name: str, xdt: str, wdt: str, *, t: int, d: int, f: int,
               e: int = 8, k: int = 2, bm: int = 8, all_pad: bool = False,
-              seed: int = 0, body=None):
+              seed: int = 0, body=None, ep=None):
     """The grouped MoE GEMM at one shape of the serving path: t tokens
     routed top-k over e experts, sorted and padded by the real dispatch
     plan, times (e, d, f) weights, through the body the host's plan picks
     (``body``: the other bf16 body forced instead). Also the same call
     with the tile ids rotated by one expert, a planted fault that must
-    fail the limit. Returns its report dict."""
+    fail the limit. ``ep`` = (ranks, rank): that rank's share under
+    expert parallelism over "data" (its contiguous block of the experts,
+    the tile ids remapped into it, every other tile -1); the ranks'
+    plain outputs must then sum to the one-device product, and a second
+    planted fault, a non-local tile given a real expert id, must fail the
+    limit. Returns its report dict."""
     import torch
     from repro_torch.kernels import moe_gemm, ref
+    from repro_torch.kernels.ops import local_group_ids
 
     x, w, gids, scale, counts = gemm_inputs(xdt, wdt, t=t, d=d, f=f, e=e,
                                             k=k, bm=bm, seed=seed)
     if all_pad:
         gids = torch.full_like(gids, -1)
+    shard = None
+    if ep is not None:
+        ranks, rank = ep
+        el = e // ranks
+        lo = rank * el
+        full = (w, gids, scale)
+        shard = lambda r: (
+            full[0][r * el:(r + 1) * el].contiguous(),
+            local_group_ids(full[1], r * el, el),
+            None if full[2] is None else full[2][r * el:(r + 1) * el])
+        w, gids, scale = shard(rank)
+        pad = -(-counts // bm) * bm
+        rows = (int(pad[:lo].sum()), int(pad[:lo + el].sum()))
+        counts, e = counts[lo:lo + el], el
     plan = moe_gemm.grouped_plan(
         x.dtype, w.dtype, x.shape[0], gids.numel(), d, f, e,
         torch.cuda.get_device_properties(0).multi_processor_count)
@@ -770,14 +898,43 @@ def gemm_case(name: str, xdt: str, wdt: str, *, t: int, d: int, f: int,
         if planted <= tol:
             raise AssertionError(f"{name} t={t} d={d} f={f}: ids rotated "
                                  f"by one expert pass the limit ({planted})")
+    ep_info = {}
+    if shard is not None:
+        # the ranks' shares sum to the one-device product
+        whole = ref.grouped_matmul_ref(x, full[0], full[1],
+                                       w_scale=full[2]).float()
+        total = sum(ref.grouped_matmul_ref(x, *shard(r)[:2],
+                                           w_scale=shard(r)[2]).float()
+                    for r in range(ranks))
+        sum_err = float((total - whole).abs().max())
+        if sum_err > tol:
+            raise AssertionError(f"{name} ep {ep}: the ranks' sum is "
+                                 f"{sum_err} from the whole product")
+        # a planted fault: a non-local tile given a real expert id
+        foreign = ((full[1] >= 0) & (gids < 0)).nonzero()
+        bad = gids.clone()
+        bad[int(foreign[0])] = 0
+        nonlocal_fault = float((moe_gemm.grouped_matmul(
+            x, w, bad, w_scale=scale, plan=plan).float()
+            - want.float()).abs().max())
+        if nonlocal_fault <= tol:
+            raise AssertionError(f"{name} ep {ep}: a non-local tile with "
+                                 f"a real id passes ({nonlocal_fault})")
+        ep_info = {"ep": f"rank {rank} of data={ranks}: experts "
+                         f"{lo}..{lo + el - 1}",
+                   "tiles_minus_one": int((gids < 0).sum()),
+                   "tiles": int(gids.numel()), "ep_sum_err": sum_err,
+                   "planted_fault_nonlocal": nonlocal_fault}
     del got, want
 
     # torch._grouped_mm on the same sorted rows (bf16 only): the library's
-    # time for the same product; the port never calls it
+    # time for the same product; the port never calls it (under expert
+    # parallelism: the rows of this rank's experts)
     library = None
     if xdt == "bf16" and wdt == "bf16" and not all_pad:
         ends = torch.cumsum(-(-counts // bm) * bm, 0).to(torch.int32)
-        library = lambda: torch._grouped_mm(x, w, offs=ends)
+        xl = x if shard is None else x[rows[0]:rows[1]]
+        library = lambda: torch._grouped_mm(xl, w, offs=ends)
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=x.device)
     times = case_times(run, plain, library, flush)
@@ -816,6 +973,7 @@ def gemm_case(name: str, xdt: str, wdt: str, *, t: int, d: int, f: int,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "flops": flops,
         "design_weight_bytes": reads * d * f * w.element_size(),
+        **ep_info,
     }
 
 
@@ -2612,6 +2770,357 @@ def serve_resilient(mods):
     return bist_counts, chaos_counts
 
 
+# ------------------------------------------------------------ multi-device
+
+
+MESH_TIMEOUT_S = 900.0  # a set of ranks on the card, start-up included
+MESH_MIXTRAL_LAYERS = 2  # of 56: ~21 GB of f32 weights in the solo run
+
+
+def serve_disagg(mods):
+    """(a) Prefill/decode disaggregation of full-width qwen2-0.5B (bf16,
+    the qwen serve's 8 requests, 2 prefill workers) on the modeled "ici"
+    and "dcn" links: tokens equal to the co-located serve's, 8 transfers,
+    stalls, one host drain a chunk; then the chaos plan (prefill-worker
+    kills, transfer drops, page flips, stragglers) at bf16 (a reading)
+    and at f32 on the resilient phase's requests, whose survivors' tokens
+    equal the fault-free run's. Returns the "ici" run's launch counts."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import api
+    from repro_torch.models.blocks import ModelContext
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.faults import FaultInjector, FaultPlan
+
+    cfg = get_arch("qwen2_0_5b")
+    params = init_params(api.model_specs(cfg), seed=0,
+                         dtype=torch.bfloat16, device="cuda")
+    paged = ("paged_decode_attention", "paged_decode_span_attention")
+    reqs = lambda: serve_requests(cfg.vocab_size, seed=0)
+    ctx = ModelContext(compute_dtype=torch.bfloat16, device="cuda")
+
+    def engine(**kw):
+        return ServeEngine(cfg, ctx, window=640, max_batch=4, chunk=8,
+                           page_size=16, **kw)
+
+    co, _, _ = serve_run("disagg_colocated_bf16", mods, engine(), params,
+                         reqs(), cfg.vocab_size, paged)
+    counts, base = None, None
+    for link in ("ici", "dcn"):
+        label = f"disagg_{link}_bf16"
+        eng = engine(disaggregate=True, prefill_workers=2,
+                     transfer_link=link)
+        out, c, _ = serve_run(label, mods, eng, params, reqs(),
+                              cfg.vocab_size, paged)
+        _same_tokens(label, out, co)
+        ts = eng.transfer_stats()
+        if ts["transfers"] != 8 or ts["transfer_stall_boundaries"] < 1 \
+                or eng.counters["host_syncs"] != eng.counters["chunks"]:
+            raise AssertionError(f"{label}: {ts} host_syncs "
+                                 f"{eng.counters['host_syncs']} chunks "
+                                 f"{eng.counters['chunks']}")
+        log(f"serve[{label}]: tokens equal the co-located serve's; "
+            f"transfer {ts}; pool {eng.prefill_pool.stats}")
+        if counts is None:
+            counts, base = c, out
+    # the chaos plan at bf16: a reading. A replayed request re-prefills
+    # its generated tokens as a span, which rounds otherwise than the
+    # decode steps that made them, so its bf16 tokens may part from the
+    # fault-free run's; the f32 run below is the check
+    eng = engine(disaggregate=True, prefill_workers=2, transfer_link="dcn",
+                 faults=FaultInjector(FaultPlan(**CHAOS)))
+    out, _, _ = serve_run("disagg_chaos_bf16", mods, eng, params, reqs(),
+                          cfg.vocab_size, paged)
+    same = {rid: int((toks == base[rid]).sum()) for rid, toks in out.items()}
+    log(f"serve[disagg_chaos_bf16]: a reading: tokens equal to the "
+        f"fault-free run's by request {same} of {len(base[0])}; faults "
+        f"{dict(eng.fault_stats.items())}")
+    del params
+    torch.cuda.empty_cache()
+
+    # the chaos plan at f32 (TF32 off), on the resilient phase's requests
+    # over "dcn" (arrivals every chunk, and transfers that span several
+    # boundaries, so a transfer is in flight when a drop is drawn):
+    # survivors keep the fault-free tokens
+    params = init_params(api.model_specs(cfg), seed=0, device="cuda")
+    rreqs = lambda: resilient_requests(cfg.vocab_size)
+    ctx = ModelContext(compute_dtype=torch.float32, device="cuda")
+
+    def engine32(**kw):
+        return ServeEngine(cfg, ctx, window=_window(rreqs()), max_batch=4,
+                           chunk=8, page_size=16, disaggregate=True,
+                           prefill_workers=2, transfer_link="dcn", **kw)
+
+    base, _, _ = serve_run("disagg_fault_free_f32", mods, engine32(),
+                           params, rreqs(), cfg.vocab_size, paged)
+    eng = engine32(faults=FaultInjector(FaultPlan(**CHAOS)))
+    out, _, _ = serve_run("disagg_chaos_f32", mods, eng, params, rreqs(),
+                          cfg.vocab_size, paged)
+    fs = dict(eng.fault_stats.items())
+    if fs["fault_detections"] == 0 or fs["fault_worker_failures"] \
+            + fs["fault_transfer_drops"] == 0:
+        raise AssertionError(f"disagg_chaos_f32: no disaggregation fault "
+                             f"landed {fs}")
+    _same_tokens("disagg_chaos_f32", out, base)
+    log(f"serve[disagg_chaos_f32]: {len(out)} survivors' tokens equal the "
+        f"fault-free run's; faults {fs}; pool {eng.prefill_pool.stats}")
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def compress_rank(rank, world, device, grads, steps):
+    """(f), one rank: make_compressed_grad_fn of a linear least-squares
+    loss on this rank's batch, on the card, ``steps`` times with the
+    error state carried. Returns each step's mean gradient and error."""
+    import torch
+    from repro_torch.train import compress
+    tp = {k: torch.from_numpy(v).to(device) for k, v in grads["params"]
+          .items()}
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in grads["batches"][rank].items()}
+
+    def loss_fn(p, b):
+        loss = ((b["x"] @ p["w"] + p["b"] - b["y"]) ** 2).mean()
+        return loss, {"mse": loss.detach()}
+
+    fn = compress.make_compressed_grad_fn(loss_fn)
+    err = compress.init_error_state(tp)
+    out = []
+    for _ in range(steps):
+        (loss, _), g, err = fn(tp, batch, err)
+        out.append((float(loss), {k: v.cpu().numpy() for k, v in g.items()},
+                    {k: v.cpu().numpy() for k, v in err.items()}))
+    return out
+
+
+def compress_on_one_rank(data, world, steps, device="cuda"):
+    """(f)'s arithmetic on one rank of the card: every rank's gradient by
+    autograd, then quantize, dequantize and average, the error carried."""
+    import torch
+    from repro_torch.train import compress
+    tp = {k: torch.from_numpy(v).to(device).requires_grad_()
+          for k, v in data["params"].items()}
+    grads, losses = [], []
+    for b in data["batches"]:
+        b = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+        loss = ((b["x"] @ tp["w"] + tp["b"] - b["y"]) ** 2).mean()
+        grads.append(dict(zip(tp, torch.autograd.grad(loss, list(
+            tp.values())))))
+        losses.append(float(loss.detach()))
+    err = [{k: torch.zeros_like(v) for k, v in g.items()} for g in grads]
+    out = []
+    for _ in range(steps):
+        means = {}
+        for name in tp:
+            parts = []
+            for r in range(world):
+                comp = grads[r][name] + err[r][name]
+                q, sc = compress.quantize_int8(comp)
+                err[r][name] = comp - compress.dequantize_int8(q, sc)
+                parts.append(compress.dequantize_int8(q, sc))
+            means[name] = torch.stack(parts).mean(0)
+        out.append((sum(losses) / world, means,
+                    [{k: v.clone() for k, v in e.items()} for e in err]))
+    return out
+
+
+def _mesh_tokens(label, res, job, want) -> None:
+    """Every rank's tokens of job ``job`` equal ``want`` (a list, one
+    dict a run)."""
+    for rank in res:
+        for i, w in enumerate(want):
+            got = rank[job]["runs"][i]["tokens"]
+            for rid, toks in w.items():
+                if got[rid] != toks.tolist():
+                    raise AssertionError(
+                        f"{label} rank {rank[job]['rank']} run {i} request "
+                        f"{rid}: {got[rid]} != solo {toks.tolist()}")
+
+
+def _mesh_log(label, res, job) -> None:
+    for rank in res:
+        r = rank[job]
+        for i, run in enumerate(r["runs"]):
+            toks = sum(len(v) for v in run["tokens"].values())
+            log(f"mesh[{label}] rank {r['rank']} {r['coords']} run {i}: "
+                f"{toks} tokens {run['wall_s']:.3f}s "
+                f"{toks / run['wall_s']:.1f} tok/s host_syncs="
+                f"{run['counters']['host_syncs']} chunks="
+                f"{run['counters']['chunks']} prefix_hit_rate="
+                f"{run['prefix_hit_rate']:.3f} launches={run['launches']}")
+        log(f"mesh[{label}] rank {r['rank']}: heads {r['h_local']} KV "
+            f"heads {r['kv_local']} ({r['kv_mode']}) experts "
+            f"{r['expert_local']}; {r['local_param_bytes'] / 1e9:.3f} GB "
+            f"of parameters, peak {r['peak_bytes'] / 1e9:.3f} GB; built "
+            f"in {r['init_s']:.1f}s; report {r['report']}")
+
+
+def serve_mesh(mods):
+    """(b)-(d), (f): the serving mesh, its ranks sharing the one card over
+    gloo on CUDA tensors (one process each, started here after the solo
+    references, which are then freed; each rank builds its own parameter
+    shards from the seed, leaf by leaf). (b) qwen2-0.5B at full width and
+    depth on a (1, 2) mesh, 4 requests of 100-600 tokens and 16 new: f32
+    with draft_k 2 run twice on one engine, tokens equal to the solo f32
+    engine's, prefix hits on the second run; bf16: tok/s, the share of
+    tokens equal to the solo bf16 serve's, each rank's paged-kernel
+    launches; (f) in
+    the same ranks, make_compressed_grad_fn over the 2 ranks against the
+    same arithmetic on one rank (1e-6). Then four ranks: (d) Mixtral's
+    smoke widths (h 8, kv 2) on (1, 4), the GQA fallback, f32 tokens equal
+    to solo's and the kv_heads rule reported dropped; and (c)
+    Mixtral-8x22B at full width, 2 of 56 layers, f32 on (2, 2): experts
+    over "data", heads, KV heads and vocabulary over "model", run twice
+    on one engine, every rank's tokens equal to the solo f32 engine's on
+    both runs, with the grouped GEMM's launches per rank. Returns the
+    launch counts of rank 0's runs by path."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch, get_smoke
+    from repro_torch.models import api
+    from repro_torch.models.blocks import ModelContext
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.sharded import request_dicts, serve_on_mesh
+
+    counts = {}
+    paged = ("paged_decode_attention", "paged_decode_span_attention")
+
+    def solo(cfg, dtype, reqs, runs=1, **kw):
+        params = init_params(api.model_specs(cfg), seed=0, dtype=dtype,
+                             device="cuda")
+        ctx = ModelContext(compute_dtype=dtype, device="cuda")
+        eng = ServeEngine(cfg, ctx, window=_window(reqs()), max_batch=4,
+                          chunk=8, page_size=16, **kw)
+        out = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            out.append(eng.run(params, reqs()))
+            torch.cuda.synchronize()
+            toks = sum(len(v) for v in out[-1].values())
+            wall = time.perf_counter() - t0
+            log(f"solo[{cfg.name} {str(dtype).split('.')[-1]}]: {toks} "
+                f"tokens {wall:.3f}s {toks / wall:.1f} tok/s")
+        del params, eng
+        torch.cuda.empty_cache()
+        return out
+
+    def job(cfg_name, dtype, reqs, runs=1, **kw):
+        return dict(arch=cfg_name, compute_dtype=dtype, param_dtype=dtype,
+                    q_chunk=2048, seed=0, runs=runs,
+                    requests=request_dicts(reqs()),
+                    engine=dict(window=_window(reqs()), max_batch=4,
+                                chunk=8, page_size=16, **kw))
+
+    # (b) and (f) on (1, 2): two ranks
+    qwen = get_arch("qwen2_0_5b")
+    q32 = lambda: serve_requests(qwen.vocab_size, seed=2, n=4, max_new=16)
+    q16 = lambda: serve_requests(qwen.vocab_size, seed=0, n=4, max_new=16)
+    want32 = solo(qwen, torch.float32, q32, runs=2, draft_k=2)
+    want16 = solo(qwen, torch.bfloat16, q16)[0]
+    full = get_arch("mixtral_8x22b")
+    mix = dataclasses.replace(full, n_layers=MESH_MIXTRAL_LAYERS)
+    mreqs = lambda: serve_requests(mix.vocab_size, seed=3, n=4, max_new=8)
+    want_mix = solo(mix, torch.float32, mreqs, runs=2)
+    rng = np.random.default_rng(5)
+    data = {"params": {"w": rng.standard_normal((64, 32)).astype(np.float32),
+                       "b": rng.standard_normal(32).astype(np.float32)},
+            "batches": [{"x": rng.standard_normal((16, 64)).astype(
+                np.float32), "y": rng.standard_normal((16, 32)).astype(
+                    np.float32)} for _ in range(2)]}
+    one = compress_on_one_rank(data, 2, steps=3)
+    torch.cuda.empty_cache()
+    mjob = job("mixtral_8x22b", "float32", mreqs, runs=2)
+    mjob.update(overrides={"n_layers": MESH_MIXTRAL_LAYERS}, mesh=(2, 2))
+    t0 = time.perf_counter()
+    res = serve_on_mesh([
+        job("qwen2_0_5b", "float32", q32, runs=2, draft_k=2),
+        job("qwen2_0_5b", "bfloat16", q16),
+        {"task": "__main__:compress_rank",
+         "kwargs": {"grads": data, "steps": 3}},
+    ], (1, 2), "cuda", timeout_s=MESH_TIMEOUT_S)
+    log(f"mesh (1, 2): 2 ranks on the card, {time.perf_counter() - t0:.1f}s "
+        f"with start-up")
+    _mesh_log("qwen_f32_1x2", res, 0)
+    _mesh_tokens("qwen_f32_1x2", res, 0, want32)
+    for rank in res:
+        if not rank[0]["runs"][1]["prefix_hit_rate"] > 0:
+            raise AssertionError("qwen_f32_1x2: run 2 hit no prefix")
+    log("mesh[qwen_f32_1x2]: every rank's tokens equal the solo f32 "
+        "engine's on both runs")
+    _mesh_log("qwen_bf16_1x2", res, 1)
+    same = total = 0
+    for rid, toks in want16.items():
+        got = res[0][1]["runs"][0]["tokens"][rid]
+        same += sum(int(a == b) for a, b in zip(got, toks.tolist()))
+        total += len(toks)
+    for rank in res:
+        c = rank[1]["runs"][0]["launches"]
+        if any(c[k] == 0 for k in paged):
+            raise AssertionError(f"qwen_bf16_1x2 rank {rank[1]['rank']}: "
+                                 f"launches {c}")
+    counts["qwen2_0_5b_mesh_1x2"] = res[0][1]["runs"][0]["launches"]
+    log(f"mesh[qwen_bf16_1x2]: {same} of {total} tokens "
+        f"({100 * same / total:.1f}%) equal the solo bf16 serve's")
+    for rank in res:
+        for step, ((loss, g, e), (wl, wg, we)) in enumerate(zip(rank[2],
+                                                                one)):
+            r = rank[1]["rank"]
+            gap = max(max(float(np.abs(g[k] - wg[k].cpu().numpy()).max())
+                          for k in g),
+                      max(float(np.abs(e[k] - we[r][k].cpu().numpy()).max())
+                          for k in e))
+            if gap > 1e-6 or abs(loss - wl) > 1e-6 * max(1.0, abs(wl)):
+                raise AssertionError(f"compress rank {r} step {step}: "
+                                     f"{gap} from one rank's arithmetic")
+    log("compress: make_compressed_grad_fn over 2 ranks on the card: "
+        "mean, error state and loss within 1e-6 of one rank's arithmetic "
+        "over 3 steps")
+    del res
+
+    # (d) and (c): four ranks, two mesh shapes
+    smoke = get_smoke("mixtral_8x22b")
+    sreqs = lambda: dense_requests(smoke.vocab_size, 4, (9, 17, 30, 45), 8)
+    want_smoke = solo(smoke, torch.float32, sreqs)
+    t0 = time.perf_counter()
+    sjob = job("mixtral_8x22b", "float32", sreqs)
+    sjob.update(smoke=True, mesh=(1, 4))
+    res = serve_on_mesh([sjob, mjob], (1, 4), "cuda",
+                        timeout_s=MESH_TIMEOUT_S)
+    log(f"mesh (1, 4) and (2, 2): 4 ranks on the card, "
+        f"{time.perf_counter() - t0:.1f}s with start-up")
+    _mesh_log("mixtral_smoke_1x4", res, 0)
+    _mesh_tokens("mixtral_smoke_1x4", res, 0, [want_smoke[0]])
+    for rank in res:
+        r = rank[0]
+        if r["kv_mode"] != "slice" or not any(
+                "kv_heads=2" in ln for ln in r["report"]["dropped_rules"]):
+            raise AssertionError(f"mixtral_smoke_1x4: {r['kv_mode']} "
+                                 f"{r['report']}")
+    log("mesh[mixtral_smoke_1x4]: every rank's tokens equal the solo f32 "
+        "engine's; the GQA fallback's dropped rule reported")
+    counts["mixtral_smoke_mesh_1x4"] = res[0][0]["runs"][0]["launches"]
+    _mesh_log("mixtral_f32_2x2", res, 1)
+    _mesh_tokens("mixtral_f32_2x2", res, 1, want_mix)
+    for rank in res:
+        c = rank[1]["runs"][0]["launches"]
+        if c["grouped_matmul"] == 0 or any(c[k] == 0 for k in paged):
+            raise AssertionError(f"mixtral_f32_2x2 rank {rank[1]['rank']}: "
+                                 f"launches {c}")
+        if rank[1]["expert_local"] != mix.n_experts // 2:
+            raise AssertionError(f"mixtral_f32_2x2 rank {rank[1]['rank']}: "
+                                 f"{rank[1]['expert_local']} experts")
+    log("mesh[mixtral_f32_2x2]: every rank's tokens equal the solo f32 "
+        "engine's on both runs; grouped GEMM launches by rank "
+        + str([rank[1]["runs"][0]["launches"]["grouped_matmul"]
+               for rank in res]))
+    counts[f"mixtral_8x22b_{MESH_MIXTRAL_LAYERS}l_mesh_2x2"] = \
+        res[0][1]["runs"][0]["launches"]
+    return counts
+
+
 # ------------------------------------------------------------------- train
 
 
@@ -3817,6 +4326,15 @@ def main() -> int:
                                         pages, t=1, **shape))
     variants.append(kernel_case(kern, "paged_decode_attention", "bf16",
                                 t=1, ctxs=(16,) * 8))
+    # the serving mesh's per-rank shapes on model=2: qwen2-0.5B's decode
+    # (7 query heads over 1 KV head, D 64) and Mixtral's 128-token span
+    # (24 over 4, D 128), each also reading another rank's KV-head block
+    # (a planted fault)
+    for pages in ("bf16", "int8"):
+        variants.append(shard_kernel_case(kern, "paged_decode_attention",
+                                          pages, t=1, m=2))
+    variants.append(shard_kernel_case(kern, "paged_decode_span_attention",
+                                      "bf16", t=128, m=2, **mix_attn))
     for v in variants:
         body = ""
         if "splits" in v:
@@ -3835,6 +4353,11 @@ def main() -> int:
             f"planted_fault={v['planted_fault']} "
             f"{times_text(v)} (SDPA) bound_ms={v['bound_ms']:.4f}"
             f" ({v['bound_by']})")
+        if "shard" in v:
+            log(f"  shard: {v['shard']}: max_abs_err against the whole "
+                f"pool's heads {v['full_pool_err']:.3e}; planted_fault("
+                f"KV block of heads from {v['wrong_block_start']})="
+                f"{v['planted_fault_block']:.3e}")
     gemms = []
     mix_d, mix_f = 6144, 16384
     for xdt, wdt in (("bf16", "bf16"), ("f32", "f32"), ("bf16", "int8")):
@@ -3865,6 +4388,14 @@ def main() -> int:
             gemms.append(gemm_case(
                 "grouped_matmul", "bf16", "bf16", t=t, d=d, f=f,
                 body="wgmma" if chosen["body"] == "stream" else "stream"))
+    # expert parallelism over data=2 (Mixtral's 8 experts, rank 0 holds
+    # 4): about half the tiles are -1; a decode step and a 128-token chunk,
+    # up and down, bf16 and f32
+    for xdt in ("bf16", "f32"):
+        for t, d, f in ((4, mix_d, mix_f), (128, mix_d, mix_f),
+                        (4, mix_f, mix_d)):
+            gemms.append(gemm_case("grouped_matmul", xdt, xdt, t=t, d=d,
+                                   f=f, ep=(2, 0)))
     for v in gemms:
         log(f"kernel grouped_matmul x={v['x']} w={v['w']} t={v['t']} "
             f"M={v['m']} D={v['d']} F={v['f']} E={v['e']} "
@@ -3877,6 +4408,12 @@ def main() -> int:
             f"bound_ms={v['bound_ms']:.4f} ({v['bound_by']}) "
             f"bytes={v['bytes']:.4g} design_weight_bytes="
             f"{v['design_weight_bytes']:.4g}")
+        if "ep" in v:
+            log(f"  expert parallel: {v['ep']}: {v['tiles_minus_one']} of "
+                f"{v['tiles']} tiles -1; the ranks' sum "
+                f"{v['ep_sum_err']:.3e} from the one-device product; "
+                f"planted_fault(non-local tile with a real id)="
+                f"{v['planted_fault_nonlocal']:.3e}")
     # the readings behind the plan: the stream body's splits at decode and
     # chunk shapes, and both bodies from 8 to 1024 tokens
     stream = lambda s, wd=torch.bfloat16: moe_gemm.stream_plan(wd, s)
@@ -3996,6 +4533,9 @@ def main() -> int:
     counts["qwen2_0_5b_bist"], counts["qwen2_0_5b_chaos"] = \
         serve_resilient(mods)
     log(f"resilient serve phase done at {time.perf_counter() - t_start:.1f}s")
+    counts["qwen2_0_5b_disagg"] = serve_disagg(mods)
+    counts.update(serve_mesh(mods))
+    log(f"multi-device phase done at {time.perf_counter() - t_start:.1f}s")
     counts["qwen2_0_5b_train"], train_trace = train_qwen(mods)
     log(f"train phase done at {time.perf_counter() - t_start:.1f}s")
     state_paths, wkv_grads = train_state(mods)
@@ -4100,8 +4640,10 @@ def main() -> int:
             "device_ms": rep["device_ms"],
             "library_device_ms": rep["library_device_ms"],
             "variants": [{k: v.get(k) for k in keys + (
-                "sk", "splits", "device_ms", "library_device_ms") if k in v}
-                for v in mine],
+                "sk", "splits", "device_ms", "library_device_ms", "shard",
+                "full_pool_err", "planted_fault_block", "ep",
+                "tiles_minus_one", "ep_sum_err", "planted_fault_nonlocal")
+                if k in v} for v in mine],
         })
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(smi, flush=True)

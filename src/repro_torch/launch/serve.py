@@ -23,6 +23,19 @@ schedule; ``--ttft-deadline`` and ``--spec-off-depth`` turn on SLO
 admission; ``--quantize`` stores the weights in fp8 (or int8, a storage
 demo that zeroes nearly every weight).
 
+Multi-device, as the reference launcher: ``--mesh D,M`` serves on a
+(data, model) mesh of D*M ranks, which the launcher starts itself (one
+process each, ``torch.multiprocessing``, joined through a file store in a
+temporary directory); rank 0 prints. ``--rules`` names the AxisRules set.
+The ranks talk over gloo on the CPU, NCCL when every rank has a card of
+its own, and gloo on CUDA tensors when ranks share a card (NCCL refuses
+two ranks on one device): ``--mesh 1,2`` on one card runs two ranks on
+it. Each rank builds its own parameter shards from ``--seed``.
+``--disaggregate`` turns on prefill/decode disaggregation with
+``--prefill-workers`` modeled workers handing pages over a modeled
+``--link`` (ici | dcn); ``--chaos`` then also kills prefill workers and
+drops page transfers.
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b \
       --smoke --trace 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b \
@@ -32,13 +45,17 @@ demo that zeroes nearly every weight).
       --smoke --trace 4 --device cpu [--moe-dispatch capacity]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_1_6b \
       --smoke --trace 4 --device cpu        # or --arch jamba_v01_52b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b \
+      --smoke --trace 8 --device cpu --mesh 1,2 --disaggregate \
+      --prefill-workers 2 --link dcn
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 import time
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,12 +64,12 @@ from repro_torch.configs.registry import get_arch, get_smoke
 from repro_torch.device import resolve_device
 from repro_torch.models import api
 from repro_torch.models.blocks import ModelContext
-from repro_torch.models.params import init_params
 from repro_torch.obs.trace import SpanTracer
 from repro_torch.serve.admission import AdmissionController, AdmissionPolicy
 from repro_torch.serve.engine import ServeEngine, quantize_weights
 from repro_torch.serve.faults import FaultInjector, FaultPlan, startup_bist
 from repro_torch.serve.scheduler import Request
+from repro_torch.sharding.axes import RULE_SETS
 
 
 def make_trace(n: int, vocab: int, seed: int, *, prompt_lo=8, prompt_hi=32,
@@ -139,7 +156,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -173,7 +190,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                          "mismatch")
     ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
                     help="turn on the deterministic fault schedule with "
-                         "this seed (KV page flips, stragglers)")
+                         "this seed (worker kills, KV page flips, transfer "
+                         "drops, stragglers)")
     ap.add_argument("--ttft-deadline", type=int, default=None,
                     metavar="STEPS",
                     help="shed requests whose best-case TTFT exceeds this "
@@ -182,6 +200,17 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     metavar="DEPTH",
                     help="drop speculative decoding while more than DEPTH "
                          "requests queue")
+    ap.add_argument("--mesh", default=None, metavar="D,M",
+                    help="serve on a (data, model) mesh of D*M ranks, "
+                         "started by the launcher")
+    ap.add_argument("--rules", default="baseline_dp_tp",
+                    choices=sorted(RULE_SETS),
+                    help="AxisRules set for the serving mesh")
+    ap.add_argument("--disaggregate", action="store_true",
+                    help="prefill/decode disaggregation (paged archs)")
+    ap.add_argument("--prefill-workers", type=int, default=1)
+    ap.add_argument("--link", choices=["ici", "dcn"], default="ici",
+                    help="modeled prefill->decode page-transfer link")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
@@ -196,13 +225,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="write the request-lifecycle Chrome trace")
     ap.add_argument("--steptrace-out", default=None, metavar="PATH",
                     help="write the measured step-time trace")
-    args = ap.parse_args(argv)
+    return ap
 
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    args = _parser().parse_args(argv)
     device = resolve_device(args.device)
     if args.profile and device.type != "cuda":
         raise SystemExit("--profile measures device time: it needs a GPU")
-    impl = "cuda" if device.type == "cuda" else "ref"
     if args.bist:
+        impl = "cuda" if device.type == "cuda" else "ref"
         res = startup_bist(impl=impl, device=device)
         print(f"bist: matmul max_err={res.matmul_report.max_abs_err:.3e} "
               f"paged_decode max_err={res.paged_decode_max_err:.3e} "
@@ -210,17 +242,56 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         if not res.passed:
             raise SystemExit(
                 "bist: kernel self-test failed; refusing to serve")
+    if args.mesh is None:
+        serve(args, device)
+        return
+    d, m = mesh_shape(args.mesh)
+    if args.profile:
+        raise SystemExit("--profile reads one device: run it without "
+                         "--mesh")
+    from repro_torch.sharding.comm import run_ranks
+    if device.type == "cuda":
+        torch.cuda.empty_cache()  # the ranks share what the BIST held
+    run_ranks(_mesh_rank, d * m, (list(sys.argv[1:] if argv is None
+                                       else argv), str(device)),
+              timeout_s=MESH_TIMEOUT_S)
+
+
+MESH_TIMEOUT_S = 3600.0
+
+
+def mesh_shape(text: str) -> Tuple[int, int]:
+    try:
+        d, m = (int(x) for x in text.split(","))
+    except ValueError:
+        raise SystemExit(f"--mesh takes D,M, got {text!r}") from None
+    if d < 1 or m < 1:
+        raise SystemExit(f"--mesh {text}: both sizes must be >= 1")
+    return d, m
+
+
+def _mesh_rank(rank: int, world: int, store: str, argv: List[str],
+               device: str) -> None:
+    """One rank of ``--mesh``: join the mesh, then serve with it."""
+    from repro_torch.sharding.comm import init_rank, make_mesh
+    args = _parser().parse_args(argv)
+    dev = init_rank(rank, world, store, torch.device(device),
+                    timeout_s=MESH_TIMEOUT_S)
+    mesh = make_mesh(mesh_shape(args.mesh), dev)
+    serve(args, dev, mesh=mesh, rank=rank)
+
+
+def serve(args, device: torch.device, *, mesh=None, rank: int = 0
+          ) -> None:
+    """The launcher's serve on ``device``; on a mesh, this rank's part of
+    it (rank 0 prints)."""
+    say = print if rank == 0 else (lambda *a, **k: None)
     cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
     dtype = getattr(torch, args.dtype)
     ctx = ModelContext(
         compute_dtype=dtype, mamba_chunk=16, rwkv_chunk=8,
         decode_cache_dtype=torch.int8 if args.kv_int8 else None,
         device=device, moe_dispatch=args.moe_dispatch)
-    params = init_params(api.model_specs(cfg), seed=args.seed, dtype=dtype,
-                         device=device)
-    if args.quantize != "none":
-        params = quantize_weights(params, {"fp8": torch.float8_e4m3fn,
-                                           "int8": torch.int8}[args.quantize])
     window = args.prompt_len + args.max_new
     paged = api.supports_paged_decode(cfg)
     tracer = SpanTracer() if args.trace_out else None
@@ -243,12 +314,27 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             draft_k=args.draft_k if paged else 0,
             prefix_cache=paged and not args.no_prefix_cache,
             prefill_chunk=args.prefill_chunk, tracer=tracer,
-            faults=faults, admission=admission)
+            faults=faults, admission=admission, mesh=mesh, rules=args.rules,
+            disaggregate=args.disaggregate,
+            prefill_workers=args.prefill_workers, transfer_link=args.link)
 
     engine = make_engine()
+    # on a mesh, this rank's shards, built leaf by leaf from the seed
+    params = engine.local_params(args.seed, dtype)
+    if args.quantize != "none":
+        params = quantize_weights(params, {"fp8": torch.float8_e4m3fn,
+                                           "int8": torch.int8}[args.quantize])
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     where = f"{'paged' if engine.paged else 'dense'} on {device}"
+    if mesh is not None:
+        where += f", mesh {args.mesh}"
+        rep = engine.sharding_report
+        say(f"mesh={rep['mesh']} rules={rep['rules']}")
+        for line in rep["dropped_rules"]:
+            say(f"  fallback: {line}")
+    if args.disaggregate:
+        where += f", disaggregated over {args.link}"
 
     if args.trace:
         def trace():
@@ -280,21 +366,35 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             print_profile(prof, prof_wall)
         toks = sum(len(v) for v in out.values())
         s = engine.scheduler
-        print(f"[{where}] {args.trace} requests, {toks} tokens in "
+        say(f"[{where}] {args.trace} requests, {toks} tokens in "
               f"{wall:.2f}s ({toks / wall:.1f} tok/s) "
               f"host_syncs={engine.counters['host_syncs']}")
-        print(f"occupancy={s.mean_occupancy:.2f} stats={s.stats}")
-        print(slo_line(engine))
+        say(f"occupancy={s.mean_occupancy:.2f} stats={s.stats}")
+        say(slo_line(engine))
         if engine.paged:
-            print(f"prefix_hit_rate={engine.prefix_hit_rate:.2f} "
+            say(f"prefix_hit_rate={engine.prefix_hit_rate:.2f} "
                   f"acceptance_length={engine.acceptance_length:.2f} "
                   f"kv={engine.kv.counters}")
         elif engine.bucket_prefill:
-            print(f"prefill_bucket_sizes="
+            say(f"prefill_bucket_sizes="
                   f"{sorted(engine.prefill_bucket_sizes)}")
         if faults is not None or admission is not None:
-            print(f"[faults] {dict(engine.fault_stats.items())}")
-        dump_telemetry(engine, args)
+            say(f"[faults] {dict(engine.fault_stats.items())}")
+        if args.disaggregate:
+            ts = engine.transfer_stats()
+            say(f"[disagg] link={ts['link']} transfers={ts['transfers']} "
+                f"pages={ts['transfer_pages']} "
+                f"bytes={ts['transfer_bytes']} "
+                f"stall_boundaries={ts['transfer_stall_boundaries']} "
+                f"idle_boundaries={ts['decode_idle_boundaries']}")
+            say(f"[disagg] prefill queue depth mean="
+                f"{ts['prefill_depth_mean']:.2f} "
+                f"peak={ts['prefill_depth_peak']} | decode queue depth "
+                f"mean={ts['decode_depth_mean']:.2f} "
+                f"peak={ts['decode_depth_peak']} | "
+                f"pool={engine.prefill_pool.stats}")
+        if rank == 0:
+            dump_telemetry(engine, args)
         return
 
     rng = np.random.default_rng(args.seed)
@@ -310,12 +410,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     _sync(device)
     wall = time.perf_counter() - t0
     toks = args.batch * args.max_new
-    print(f"[{where}] generated {toks} tokens in {wall:.2f}s "
+    say(f"[{where}] generated {toks} tokens in {wall:.2f}s "
           f"({toks / wall:.1f} tok/s batch={args.batch}) "
           f"host_syncs={engine.counters['host_syncs']}")
-    print(slo_line(engine))
-    print("sample:", out[0, :16].tolist())
-    dump_telemetry(engine, args)
+    say(slo_line(engine))
+    say("sample:", out[0, :16].tolist())
+    if rank == 0:
+        dump_telemetry(engine, args)
 
 
 if __name__ == "__main__":

@@ -69,7 +69,12 @@ class ModelContext:
     for sliding-window archs. ``moe_dispatch`` is
     the serving MoE dispatch: "grouped" (sort-based dropless through the
     grouped GEMM; the default) or "capacity" (the dropless capacity
-    buffer); ``moe_impl=None`` derives the GEMM impl from attn_impl."""
+    buffer); ``moe_impl=None`` derives the GEMM impl from attn_impl.
+
+    Serving mesh, as the reference's context carries it: ``mesh`` (the
+    (data, model) DeviceMesh), ``rules`` (an AxisRules), the axis names,
+    and ``plan``, this rank's ``sharding.plan.ShardPlan``, which the model
+    code reads for its local shapes and collectives (None: one device)."""
 
     def __init__(self, *, compute_dtype: torch.dtype = torch.bfloat16,
                  q_chunk: int = 2048, mamba_chunk: int = 256,
@@ -79,7 +84,10 @@ class ModelContext:
                  full_cache_window: bool = False,
                  device: DeviceLike = None,
                  moe_dispatch: str = "grouped",
-                 moe_impl: Optional[str] = None):
+                 moe_impl: Optional[str] = None,
+                 mesh: Any = None, rules: Any = None,
+                 data_axis: str = "data", model_axis: str = "model",
+                 plan: Any = None):
         self.device = resolve_device(device)
         if attn_impl is None:
             attn_impl = "cuda" if self.device.type == "cuda" else "ref"
@@ -103,6 +111,11 @@ class ModelContext:
                              f"got {moe_impl!r}")
         self.moe_dispatch = moe_dispatch
         self.moe_impl = moe_impl
+        self.mesh = mesh
+        self.rules = rules
+        self.data_axis = data_axis
+        self.model_axis = model_axis
+        self.plan = plan
 
     @property
     def cache_dtype(self) -> torch.dtype:
@@ -112,8 +125,10 @@ class ModelContext:
         """Serving-path moe_ffn kwargs for this context (dropless)."""
         if self.moe_dispatch != "grouped":
             return {"dropless": True}
-        return {"dispatch": "grouped",
-                "impl": self.moe_impl or self.attn_impl}
+        kw = {"dispatch": "grouped", "impl": self.moe_impl or self.attn_impl}
+        if self.plan is not None and self.plan.ep > 1:
+            kw["mesh"] = self.mesh  # experts split over "data"
+        return kw
 
 
 # ---------------------------------------------------------------------------
@@ -278,7 +293,10 @@ def paged_dequantize(x: Tensor, scale: Optional[Tensor],
 def paged_sublayer_cache_spec(cfg: ModelConfig, num_pages: int,
                               page_size: int, ctx: ModelContext
                               ) -> Dict[str, TensorSpec]:
+    """One layer's pages; on a mesh, this rank's block of the KV heads."""
     hd, kv = cfg.resolved_head_dim, cfg.n_kv_heads
+    if ctx.plan is not None:
+        kv = ctx.plan.kv_local
     cdt = ctx.cache_dtype
     spec = {
         "k": TensorSpec((num_pages, page_size, kv, hd), cdt),
@@ -321,8 +339,15 @@ def _paged_gather(pages: Dict[str, Tensor], page_table: Tensor,
 def _write_pages(pages: Dict[str, Tensor], pid: Tensor, slot: Tensor,
                  k: Tensor, v: Tensor, cache_dtype: torch.dtype) -> None:
     """Quantize and scatter k/v (pid/slot-shaped leading dims) in place.
-    Duplicate targets only ever hit the trash page 0, never read as
-    valid, so their nondeterministic order is harmless."""
+    Duplicate targets only ever hit the trash page 0, and every write
+    there stores zeros: the order of duplicate writes is undefined on the
+    card, so garbage rows would leave the page, and the dead rows that
+    read it, differing from run to run and from rank to rank. A zero
+    trash page keeps every rank's pool bit-identical, as the replicated
+    expert-parallel dispatch needs (models/moe.py)."""
+    trash = (pid == 0)[..., None, None]
+    k = torch.where(trash, 0.0, k)
+    v = torch.where(trash, 0.0, v)
     kq, ks = paged_quantize(k, cache_dtype)
     vq, vs = paged_quantize(v, cache_dtype)
     pages["k"][pid, slot] = kq
@@ -363,6 +388,8 @@ def _residual_mlp(p, x, core, cfg: ModelConfig, ctx: ModelContext,
                          **ctx.moe_kwargs())
     else:
         mlp = dense_ffn(p["mlp"], h, cfg, dtype)
+        if ctx.plan is not None and ctx.plan.mlp:
+            mlp = ctx.plan.reduce(mlp, ctx.model_axis)  # row-parallel down
     if live is not None:
         mlp = torch.where(live[..., None], mlp, 0.0)
     return x + mlp
@@ -373,6 +400,8 @@ def _attn_out_mlp(p, x, out, cfg: ModelConfig, ctx: ModelContext,
     """o-projection, then ``_residual_mlp``."""
     core = torch.einsum("bshk,hkd->bsd", out,
                         p["core"]["wo"].to(ctx.compute_dtype))
+    if ctx.plan is not None and ctx.plan.heads:
+        core = ctx.plan.reduce(core, ctx.model_axis)  # row-parallel wo
     return _residual_mlp(p, x, core, cfg, ctx, idx, live)
 
 
@@ -386,6 +415,8 @@ def sublayer_decode_paged(p, x: Tensor, pages: Dict[str, Tensor],
     page_size = pages["k"].shape[1]
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _project_qkv(p["core"], h, cfg, dtype)
+    if ctx.plan is not None:
+        k, v = ctx.plan.local_kv(k, v)  # the rank's block of the pool
     q, k = apply_positional(q, k, cfg, pos[:, None])
     bidx = torch.arange(b, device=x.device)
     pid = _table_lookup(page_table, bidx, pos, page_size)
@@ -428,6 +459,8 @@ def sublayer_decode_span_paged(p, x: Tensor, pages: Dict[str, Tensor],
     page_size = pages["k"].shape[1]
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _project_qkv(p["core"], h, cfg, dtype)
+    if ctx.plan is not None:
+        k, v = ctx.plan.local_kv(k, v)  # the rank's block of the pool
     posn = pos[:, None] + torch.arange(t, device=x.device,
                                        dtype=pos.dtype)[None, :]
     q, k = apply_positional(q, k, cfg, posn, mrope_positions)

@@ -48,13 +48,43 @@ def lm_specs(cfg: ModelConfig) -> Dict[str, Any]:
     return specs
 
 
+def _embed(params: Dict[str, Any], tokens: Tensor, cfg: ModelConfig,
+           ctx: ModelContext) -> Tensor:
+    """Token embeddings. With the vocab split over "model" (``ctx.plan``)
+    each rank looks up the ids in its block of rows, zeroes the others
+    and the rows are summed over "model": every row comes from exactly
+    one rank, so the sum is exact. Negative ids wrap and out-of-range ids
+    give NaN rows, as ``embed_lookup``."""
+    plan = ctx.plan
+    if plan is None or not plan.vocab:
+        return embed_lookup(params["embed"], tokens, ctx.compute_dtype)
+    v = cfg.vocab_size
+    idx = torch.where(tokens < 0, tokens + v, tokens)
+    ok = (idx >= 0) & (idx < v)
+    local = idx - plan.vocab_start
+    mine = (local >= 0) & (local < plan.vocab_local)
+    rows = params["embed"][local.clamp(0, plan.vocab_local - 1)].to(
+        ctx.compute_dtype)
+    rows = plan.reduce(torch.where(mine[..., None], rows, 0.0),
+                       ctx.model_axis)
+    return torch.where(ok[..., None], rows,
+                       torch.full((), float("nan"), dtype=rows.dtype,
+                                  device=rows.device))
+
+
 def _logits(params: Dict[str, Any], x: Tensor, cfg: ModelConfig,
             ctx: ModelContext) -> Tensor:
+    """The lm head (tied or separate). With the vocab split over "model"
+    each rank computes its block of the logits, gathered in vocab order
+    before the pick."""
     if cfg.tie_embeddings:
         head = params["embed"].to(ctx.compute_dtype).T
     else:
         head = params["lm_head"].to(ctx.compute_dtype)
-    return x @ head
+    logits = x @ head
+    if ctx.plan is not None and ctx.plan.vocab:
+        logits = ctx.plan.gather(logits, ctx.model_axis, dim=-1)
+    return logits
 
 
 def _block_body(bp: Dict[str, Any], x: Tensor, cfg: ModelConfig,
@@ -136,7 +166,7 @@ def lm_prefill(params: Dict[str, Any], tokens: Tensor, cfg: ModelConfig,
     ``mrope_positions`` (3,B,S): explicit multimodal rope rows (None:
     text rows, broadcast from the absolute positions)."""
     b, s = tokens.shape
-    x = embed_lookup(params["embed"], tokens, ctx.compute_dtype)
+    x = _embed(params, tokens, cfg, ctx)
     live = None
     if pad_left is not None:
         live = (torch.arange(s, device=x.device)[None, :]
@@ -164,7 +194,7 @@ def lm_decode_step(params: Dict[str, Any], token: Tensor,
     """token: (B, 1) against dense caches. Returns (logits (B,1,V), cache
     with pos advanced); the caches are updated in place."""
     pos = cache["pos"]
-    x = embed_lookup(params["embed"], token, ctx.compute_dtype)
+    x = _embed(params, token, cfg, ctx)
     for layer in range(cfg.n_blocks):
         x, _ = block_decode(tree_index(params["blocks"], layer), x,
                             tree_index(cache["blocks"], layer), pos, cfg,
@@ -192,7 +222,7 @@ def lm_decode_span(params: Dict[str, Any], tokens: Tensor,
     posn = pos[:, None] + torch.arange(t, device=tokens.device,
                                        dtype=pos.dtype)[None, :]
     live = posn >= 0
-    x = embed_lookup(params["embed"], tokens, ctx.compute_dtype)
+    x = _embed(params, tokens, cfg, ctx)
     x = x * live[..., None].to(x.dtype)
     for layer in range(cfg.n_blocks):
         x, _ = block_decode_span(tree_index(params["blocks"], layer), x,
@@ -222,7 +252,7 @@ def lm_decode_step_paged(params: Dict[str, Any], token: Tensor,
     """token: (B, 1) against the paged pool. Returns (logits (B,1,V),
     state with pos advanced); the pool is updated in place."""
     pos, table = state["pos"], state["page_table"]
-    x = embed_lookup(params["embed"], token, ctx.compute_dtype)
+    x = _embed(params, token, cfg, ctx)
     for layer in range(cfg.n_blocks):
         x, _ = block_decode_paged(
             tree_index(params["blocks"], layer), x,
@@ -251,7 +281,7 @@ def lm_decode_span_paged(params: Dict[str, Any], tokens: Tensor,
     if valid is None:
         valid = torch.full((b,), t, dtype=torch.int32, device=tokens.device)
     live = torch.arange(t, device=tokens.device)[None, :] < valid[:, None]
-    x = embed_lookup(params["embed"], tokens, ctx.compute_dtype)
+    x = _embed(params, tokens, cfg, ctx)
     for layer in range(cfg.n_blocks):
         x, _ = block_decode_span_paged(
             tree_index(params["blocks"], layer), x,

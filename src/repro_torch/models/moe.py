@@ -16,7 +16,18 @@ Two dispatch modes share one router, as in the reference:
 
 Aux losses (Switch load balance, router z-loss) are identical across the
 modes; serving asks for none (``with_aux=False``), so its forward does not
-compute them. The reference's expert-parallel mesh path is not ported.
+compute them.
+
+Expert parallelism (a serving mesh whose rules split the experts over
+"data"), as the reference's ``shard_map`` runs it: the tokens and the plan
+are replicated, each rank holds a contiguous block of experts, the up and
+gate products run on the tile ids remapped into it (every other tile -1,
+which the GEMM zeroes), and the down product is ``grouped_matmul`` over
+the mesh, which remaps the same way and sums the rows over "data" before
+the combine: each row comes from exactly one rank, pad rows are zero. The
+plan must be the same on every rank, so every row of ``x`` must be too,
+dead rows included (models/blocks.py keeps the trash page they read
+zero).
 """
 
 from __future__ import annotations
@@ -210,7 +221,8 @@ def grouped_combine(y: Tensor, plan: GroupedDispatch, gate_w: Tensor,
 
 def _moe_ffn_grouped(params: Dict[str, Tensor], x: Tensor, cfg: ModelConfig,
                      compute_dtype: torch.dtype, impl: str, block_m: int,
-                     with_aux: bool) -> Tuple[Tensor, Dict[str, Tensor]]:
+                     with_aux: bool, mesh=None
+                     ) -> Tuple[Tensor, Dict[str, Tensor]]:
     b, s, d = x.shape
     t = b * s
     k, e = cfg.experts_per_token, cfg.n_experts
@@ -218,21 +230,25 @@ def _moe_ffn_grouped(params: Dict[str, Tensor], x: Tensor, cfg: ModelConfig,
     logits, probs, gate_w, gate_idx = _route(params, xt, compute_dtype, k)
     aux = _aux_losses(logits, probs, gate_idx, t, k, e) if with_aux else {}
 
-    plan = grouped_dispatch_plan(gate_idx, n_experts=e, block_m=block_m)
-    xs = grouped_permute(xt, plan, compute_dtype)
+    dispatch = grouped_dispatch_plan(gate_idx, n_experts=e, block_m=block_m)
+    xs = grouped_permute(xt, dispatch, compute_dtype)
+    gids = dispatch.block_experts
+    local = gids if mesh is None else kops.expert_parallel_ids(
+        gids, mesh, params["w_up"].shape[-3])
 
-    def gm(rows: Tensor, name: str) -> Tensor:
+    def gm(rows: Tensor, name: str, ids: Tensor, **kw) -> Tensor:
         sc = params.get(name + "_scale")
         w = params[name] if sc is not None else \
             params[name].to(compute_dtype)
-        return kops.grouped_matmul(rows, w, plan.block_experts, w_scale=sc,
-                                   impl=impl)
+        return kops.grouped_matmul(rows, w, ids, w_scale=sc, impl=impl,
+                                   **kw)
 
-    up = gm(xs, "w_up")
-    h = swiglu(gm(xs, "w_gate"), up) if cfg.mlp_act == "swiglu" \
+    up = gm(xs, "w_up", local)
+    h = swiglu(gm(xs, "w_gate", local), up) if cfg.mlp_act == "swiglu" \
         else gelu(up)
-    down = gm(h.to(compute_dtype), "w_down")
-    return grouped_combine(down, plan, gate_w, t, k).reshape(b, s, d), aux
+    down = gm(h.to(compute_dtype), "w_down", gids, mesh=mesh, n_experts=e)
+    return (grouped_combine(down, dispatch, gate_w, t, k).reshape(b, s, d),
+            aux)
 
 
 # ---------------------------------------------------------------------------
@@ -247,7 +263,8 @@ def moe_ffn(params: Dict[str, Tensor], x: Tensor, cfg: ModelConfig,
             dispatch: str = "capacity",
             impl: str = "ref",
             block_m: int = GROUPED_BLOCK_M,
-            with_aux: bool = True
+            with_aux: bool = True,
+            mesh=None
             ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """x: (B, S, D) -> (out, aux_losses); aux_losses is empty with
     ``with_aux=False``.
@@ -256,12 +273,13 @@ def moe_ffn(params: Dict[str, Tensor], x: Tensor, cfg: ModelConfig,
     the grouped GEMM (``impl`` "cuda" or "ref"). ``dispatch="capacity"``:
     the GShard buffer, un-droppable with ``dropless=True``. Token counts
     above ``chunk_tokens`` run in sequence chunks, as the reference's
-    scan."""
+    scan. ``mesh`` (a serving mesh whose "data" axis splits the experts)
+    turns on expert parallelism in the grouped dispatch."""
     b, s, d = x.shape
     if dispatch == "grouped":
         def flat(xi):
             return _moe_ffn_grouped(params, xi, cfg, compute_dtype, impl,
-                                    block_m, with_aux)
+                                    block_m, with_aux, mesh)
     elif dispatch == "capacity":
         def flat(xi):
             return _moe_ffn_flat(params, xi, cfg, compute_dtype, dropless,

@@ -115,16 +115,21 @@ def _fold_path(seed: int, path: str) -> int:
 
 def init_params(spec_tree: Tree, seed: int = 0,
                 dtype: torch.dtype = torch.float32,
-                device: DeviceLike = None) -> Tree:
+                device: DeviceLike = None,
+                transform: Optional[Callable[[str, torch.Tensor],
+                                             torch.Tensor]] = None) -> Tree:
     """Materialize parameters on ``device`` (the card unless the caller
     asks for the CPU); each leaf draws from a generator seeded by the
-    run seed and its path."""
+    run seed and its path. ``transform(path, leaf)`` is applied to each
+    leaf as soon as it is built (a rank of a serving mesh cuts it to its
+    shard there, so the full tree never exists at once)."""
     dev = resolve_device(device)
 
     def build(path: str, spec: ParamSpec) -> torch.Tensor:
         gen = torch.Generator(device=dev)
         gen.manual_seed(_fold_path(seed, path))
-        return spec.init(gen, spec.shape, spec.dtype or dtype, dev)
+        leaf = spec.init(gen, spec.shape, spec.dtype or dtype, dev)
+        return leaf if transform is None else transform(path, leaf)
 
     def walk(node: Any, prefix: str) -> Any:
         if isinstance(node, ParamSpec):

@@ -39,27 +39,54 @@ The single-host paths of the reference, in eager PyTorch:
 
   * **Fault injection and admission control** (``faults``,
     ``admission``): the reference's deterministic chaos schedule, keyed
-    by chunk-boundary index (KV page flips caught by per-page CRC stamps,
+    by chunk-boundary index (prefill-worker kills and page-transfer drops
+    under disaggregation, KV page flips caught by per-page CRC stamps,
     quarantined and replayed; stragglers), and TTFT-deadline shedding
     with speculation dropped under queue pressure.
+  * **Prefill/decode disaggregation** (``disaggregate``, paged only):
+    ``prefill_workers`` modeled workers chunk-prefill cold prompts (placed
+    by queue depth, serve.scheduler.PrefillWorkerPool) and hand the pages
+    to the decode side over a modeled link (``PageTransferModel``);
+    an arriving slot stays *parked*, frozen on the device exactly as a
+    finished slot (its ``done`` entry set), until the transfer lands, so
+    activation is token-identical and the one host drain per chunk stays
+    one. ``transfer_stats()`` has the traffic, stalls and queue depths.
+  * **Serving mesh** (``mesh``: a (data, model) DeviceMesh, one process
+    per rank; paged attention and MoE stacks only). ``rules`` (an
+    AxisRules or a RULE_SETS name) resolve every parameter's logical axes
+    (``sharding_report`` has the dropped rules, as the reference's), and
+    ``shard_params`` cuts a full parameter tree to the rank's shards.
+    Attention heads, the dense FFN and the vocabulary split over
+    "model" with explicit collectives (sharding.plan), experts over
+    "data"; each rank's page pool holds its block of the KV heads and the
+    page ids, the table, copy-on-write and the prefix index are host
+    state, identical on every rank. Every decode slot runs on every
+    "data" rank (the reference splits the slots over "data"): "data"
+    carries the experts only. Split slots would leave each rank's copy of
+    the replicated pool different in the rows its own slots wrote, and
+    the per-page CRC stamps with it; splitting the batch is queued as
+    speed work.
 
 Greedy decoding is the parity contract with the reference engine;
 ``temperature > 0`` samples (Gumbel-max) from an explicit
 ``torch.Generator``. ``generate_pertoken`` is the reference's per-token
 loop (dense prefill, then one decode call per token), kept as a
-cross-check oracle. The reference's mesh and disaggregation paths (and
-with them the worker-failure and transfer-drop faults) are not ported yet
-and raise ``NotImplementedError``.
+cross-check oracle.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence
+import logging
+import math
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core import hwspec
+from repro_torch.core.topology import Torus
 from repro_torch.models import api
 from repro_torch.models.blocks import ModelContext, init_cache
 from repro_torch.models.config import ModelConfig
@@ -69,10 +96,63 @@ from repro_torch.obs.metrics import (CounterDict, MetricsRegistry,
 from repro_torch.obs.steptrace import StepTrace
 from repro_torch.obs.trace import SpanTracer
 from repro_torch.serve.kv_cache import DenseKVCache, PagedKVCache
-from repro_torch.serve.scheduler import ContinuousBatchingScheduler, Request
+from repro_torch.serve.scheduler import (ContinuousBatchingScheduler,
+                                         PrefillWorkerPool, Request)
+from repro_torch.sharding.axes import (AxisRules, RULE_SETS, resolve_spec,
+                                       summarize_dropped)
 
 Tensor = torch.Tensor
 PAD_TOKEN = -1  # emitted by finished slots inside a chunk
+
+log = logging.getLogger(__name__)
+
+# modeled one-way software+wire latency of the prefill->decode handoff
+_LINK_LATENCY_S = {"ici": 1.0e-6, "dcn": 50.0e-6}
+# DCN-class bandwidth as a fraction of one ICI link direction (the paper's
+# cross-pod federation rides data-center network, not ICI)
+_DCN_LINK_FRACTION = 0.25
+
+
+class PageTransferModel:
+    """Modeled prefill->decode KV-page handoff for disaggregated serving
+    (the reference's, number for number).
+
+    The two roles are modeled as slices of the same generation joined by a
+    2-ring (one hop): an "ici" link for intra-pod disaggregation, or a
+    DCN-class path (lower bandwidth, higher latency) for the paper's
+    cross-pod federation. Transfer time = link latency + bytes / the
+    ring's bisection bandwidth (core/topology.py), quantized to decode
+    chunk boundaries against an HBM-roofline estimate of boundary time,
+    so short prompts hide in one boundary while long cold prompts stall
+    their slot for several. ``hw`` names the generation in core/hwspec.py
+    (the model's link and HBM rates, not the serving device's)."""
+
+    def __init__(self, *, page_bytes: int, chunk: int, resident_bytes: int,
+                 hw: str = "tpu_v5e", link: str = "ici"):
+        if link not in _LINK_LATENCY_S:
+            raise ValueError(
+                f"transfer link must be one of {sorted(_LINK_LATENCY_S)}, "
+                f"got {link!r}")
+        spec = hwspec.get(hw)
+        gbps = spec.ici_link_gbps * (1.0 if link == "ici"
+                                     else _DCN_LINK_FRACTION)
+        self.link = link
+        self.torus = Torus(dims=(2,), link_gbps=gbps)
+        self.latency_s = _LINK_LATENCY_S[link]
+        self.page_bytes = page_bytes
+        # decode boundary walltime: ``chunk`` steps, each streaming the
+        # resident KV working set once (memory-bound decode roofline)
+        self.boundary_s = chunk * resident_bytes / (spec.hbm_gbps * 1e9)
+
+    def transfer_s(self, n_pages: int) -> float:
+        bw = self.torus.bisection_gbps() * 1e9  # bytes/s across the hop
+        return self.latency_s + n_pages * self.page_bytes / bw
+
+    def delay_boundaries(self, n_pages: int) -> int:
+        """Whole decode boundaries the pages are in flight (>= 1: a
+        handoff is never visible inside the boundary that issued it)."""
+        return max(1, math.ceil(self.transfer_s(max(1, n_pages))
+                                / self.boundary_s))
 
 
 @dataclasses.dataclass
@@ -84,7 +164,14 @@ class ServeEngine:
     it; False -> dense per-slot caches). ``prefix_cache``: share
     prompt-prefix pages across requests (None -> on when paged).
     ``prefill_chunk``: span size for chunked prefill (clamped to the
-    window). The device is ``ctx.device``."""
+    window). The device is ``ctx.device``.
+
+    ``mesh``: a (data, model) DeviceMesh this process is a rank of (paged
+    attention and MoE stacks); ``rules``: an AxisRules or a RULE_SETS
+    name. ``disaggregate``: prefill/decode disaggregation (paged only)
+    with ``prefill_workers`` modeled workers and a modeled
+    ``transfer_link`` ("ici" | "dcn") of ``PageTransferModel``'s default
+    generation, as the reference engine models it by default."""
 
     cfg: ModelConfig
     ctx: ModelContext
@@ -99,9 +186,11 @@ class ServeEngine:
     draft_k: int = 0
     prefix_cache: Optional[bool] = None
     prefill_chunk: int = 128
-    # reference features not ported yet: setting either raises
-    mesh: Any = None
+    mesh: Any = None  # serving mesh (None -> one device)
+    rules: Any = "baseline_dp_tp"  # AxisRules or RULE_SETS name
     disaggregate: bool = False
+    prefill_workers: int = 1
+    transfer_link: str = "ici"  # "ici" | "dcn"
     # serve.faults.FaultInjector (None: no fault schedule);
     # serve.admission.AdmissionController (None admits everything).
     # ``retry_budget`` bounds fault replays per request before the
@@ -114,12 +203,6 @@ class ServeEngine:
 
     def __post_init__(self) -> None:
         cfg = self.cfg
-        if self.mesh is not None:
-            raise NotImplementedError("ServeEngine(mesh=...) is not ported "
-                                      "yet")
-        if self.disaggregate:
-            raise NotImplementedError(
-                "prefill/decode disaggregation is not ported yet")
         if self.paged is None:
             self.paged = api.supports_paged_decode(cfg)
         if self.paged and not api.supports_paged_decode(cfg):
@@ -133,6 +216,20 @@ class ServeEngine:
             self.prefix_cache = self.paged
         if self.prefix_cache and not self.paged:
             raise ValueError("prefix caching requires the paged KV backend")
+        if self.disaggregate and not self.paged:
+            raise ValueError("prefill/decode disaggregation requires the "
+                             "paged KV backend (pages are the handoff unit)")
+        if self.prefill_workers < 1:
+            raise ValueError("prefill_workers must be >= 1")
+        if isinstance(self.rules, str):
+            self.rules = RULE_SETS[self.rules]
+        if not isinstance(self.rules, AxisRules):
+            raise ValueError(f"rules must be AxisRules or one of "
+                             f"{sorted(RULE_SETS)}")
+        self.dropped_rules: List[str] = []
+        self._dropped_raw: List[Tuple[str, int]] = []
+        if self.mesh is not None:
+            self.ctx = self._mesh_context(self.ctx)
         self.device = self.ctx.device
         if self.metrics is None:
             self.metrics = MetricsRegistry()
@@ -183,6 +280,15 @@ class ServeEngine:
             self.kv: Any = PagedKVCache(cfg, self.ctx, self.num_pages,
                                         self.page_size, self.max_batch,
                                         self.pages_per_seq)
+            if self.mesh is not None:
+                # the reference's pool placement: the KV-head axis of
+                # every page leaf over the rules (GQA drops reported)
+                raw: List[Tuple[str, int]] = []
+                for _, leaf in self.kv.global_leaf_shapes():
+                    logical = (None, None, None, "kv_heads", None)
+                    resolve_spec(logical[:len(leaf)], leaf, self.mesh,
+                                 self.rules, raw)
+                self._note_dropped(raw)
         else:
             self.kv = DenseKVCache(cfg, self.ctx, self.window,
                                    self.max_batch)
@@ -228,7 +334,116 @@ class ServeEngine:
         self.prefill_bucket_sizes: set = set()  # bucketed prefill lengths
         self._use_spec = False  # per run: draft_k > 0 and greedy
         self._gen: Optional[torch.Generator] = None
+        # disaggregation: parked slots (admitted, frozen while their
+        # modeled page transfer is in flight) -> the clock they land at
+        self._parked: Dict[int, int] = {}
+        self._park_spans: set = set()
+        self.transfer_model: Optional[PageTransferModel] = None
+        if self.disaggregate:
+            self.page_bytes = self.kv.per_token_bytes() * self.page_size
+            self.transfer_model = PageTransferModel(
+                page_bytes=self.page_bytes, chunk=self.chunk,
+                resident_bytes=self.max_batch * self.window
+                * self.kv.per_token_bytes(), link=self.transfer_link)
+        self.disagg_stats = CounterDict(
+            self.metrics,
+            ("transfers", "transfer_pages", "transfer_bytes",
+             "transfer_stall_boundaries", "decode_idle_boundaries",
+             "boundaries", "prefill_depth_sum", "prefill_depth_peak",
+             "decode_depth_sum", "decode_depth_peak"),
+            prefix="serve_")
         self._reset_carry()
+
+    # ------------------------------------------------------ mesh wiring
+
+    def _mesh_context(self, ctx: ModelContext) -> ModelContext:
+        """The model context with the serving mesh, the rules and this
+        rank's ShardPlan threaded in. Only the paged backend (attention
+        and MoE stacks) runs on a mesh."""
+        from repro_torch.sharding.plan import ShardPlan
+        cfg = self.cfg
+        if not self.paged:
+            if cfg.is_encoder_decoder:
+                family = "the encoder-decoder"
+            elif set(cfg.sublayer_kinds()) - {"attn"}:
+                family = ("the state family ("
+                          + "/".join(sorted(set(cfg.sublayer_kinds())))
+                          + ")")
+            else:
+                family = "the dense and ring caches"
+            raise NotImplementedError(
+                f"{cfg.name}: serving on a mesh is ported for the paged "
+                f"backend (attention and MoE stacks) only, not for "
+                f"{family}")
+        plan = ShardPlan.build(cfg, api.model_specs(cfg), self.mesh,
+                               self.rules)
+        if plan.ep > 1 and ctx.moe_dispatch != "grouped":
+            raise NotImplementedError(
+                "expert parallelism runs the grouped MoE dispatch only")
+        out = copy.copy(ctx)
+        out.mesh, out.rules, out.plan = self.mesh, self.rules, plan
+        out.data_axis, out.model_axis = "data", "model"
+        return out
+
+    def _note_dropped(self, raw=None) -> None:
+        """Fold freshly recorded divisibility fallbacks into the one-time
+        report (logged at WARNING, and in ``sharding_report``)."""
+        if self.mesh is None:
+            return
+        if raw is not None:
+            self._dropped_raw.extend(raw)
+        lines = summarize_dropped(self._dropped_raw, self.mesh, self.rules)
+        new = [ln for ln in lines if ln not in self.dropped_rules]
+        if new:
+            self.dropped_rules.extend(new)
+            log.warning("serve sharding fallbacks (%s on %s): %s",
+                        self.rules.name, self.cfg.name, "; ".join(new))
+
+    @property
+    def sharding_report(self) -> Dict[str, Any]:
+        """Mesh layout + every dropped-rule fallback seen so far."""
+        if self.mesh is None:
+            return {"mesh": None, "rules": self.rules.name,
+                    "dropped_rules": []}
+        from repro_torch.sharding.axes import axis_sizes
+        return {"mesh": axis_sizes(self.mesh), "rules": self.rules.name,
+                "dropped_rules": list(self.dropped_rules)}
+
+    def shard_params(self, params: Any) -> Any:
+        """This rank's shards of a full parameter tree (identity without a
+        mesh; leaves already cut to the shard stay as they are), with the
+        parameters' dropped rules added to the report. ``run()`` applies
+        it."""
+        if self.mesh is None:
+            return params
+        self._note_dropped(self.ctx.plan.dropped)
+        return self.ctx.plan.shard_tree(params)
+
+    def local_params(self, seed: int = 0,
+                     dtype: torch.dtype = torch.float32) -> Any:
+        """``init_params(model_specs(cfg), seed, dtype)`` as this rank's
+        shards, built leaf by leaf on the engine's device (the same values
+        as ``shard_params`` of the full tree)."""
+        if self.mesh is None:
+            from repro_torch.models.params import init_params
+            return init_params(api.model_specs(self.cfg), seed=seed,
+                               dtype=dtype, device=self.device)
+        self._note_dropped(self.ctx.plan.dropped)
+        return self.ctx.plan.init_local(api.model_specs(self.cfg), seed,
+                                        dtype, self.device)
+
+    def transfer_stats(self) -> Dict[str, float]:
+        """Disaggregation traffic/stall/queue-depth accounting (empty
+        dict when ``disaggregate`` is off)."""
+        if not self.disaggregate:
+            return {}
+        st = dict(self.disagg_stats)
+        n = max(1, st.pop("boundaries"))
+        st["prefill_depth_mean"] = st.pop("prefill_depth_sum") / n
+        st["decode_depth_mean"] = st.pop("decode_depth_sum") / n
+        st["transfer_s_per_page"] = self.transfer_model.transfer_s(1)
+        st["link"] = self.transfer_link
+        return st
 
     # ------------------------------------------------------------ picks
 
@@ -606,7 +821,11 @@ class ServeEngine:
         if self.paged:
             self.kv.release(slot)
         self._done[slot] = True
+        self._parked.pop(slot, None)
         pid = self._trace_pid
+        if slot in self._park_spans:
+            self.tracer.end(pid=pid, tid=slot)
+            self._park_spans.discard(slot)
         self.tracer.end(pid=pid, tid=slot)  # req span
         self.tracer.instant("fault_replay", pid=pid, tid=slot, cat="serve",
                             args={"rid": req.rid, "reason": reason,
@@ -620,16 +839,43 @@ class ServeEngine:
             self.fault_stats["retry_requeues"] += 1
 
     def _apply_faults(self, boundary: int, clock: int,
-                      sched: ContinuousBatchingScheduler) -> None:
-        """Inject this boundary's page flip, then run detection, in that
-        order and before the chunk, so corrupted KV is quarantined before
-        any decode step could read it: CRC-verify every stamped page,
-        quarantine mismatches and replay every request still mapping
-        them. Page flips target the paged pool only."""
+                      sched: ContinuousBatchingScheduler,
+                      pool: Optional[PrefillWorkerPool]) -> None:
+        """Inject this boundary's scheduled faults, then run detection, in
+        that order and before the chunk, so corrupted KV is quarantined
+        before any decode step could read it. A prefill-worker kill and a
+        page-transfer drop act only with a prefill pool (disaggregation):
+        the worker's queue is re-placed, the dropped transfer is retried
+        ``transfer_retry_boundaries`` later. Page flips target the paged
+        pool: CRC-verify every stamped page, quarantine mismatches and
+        replay every request still mapping them."""
+        inj = self.faults
+        fs = self.fault_stats
+        pid = self._trace_pid
+        if pool is not None:
+            w = inj.worker_failure(boundary)
+            if w is not None:
+                lost = pool.fail_worker(w % pool.n_workers, clock)
+                fs["fault_worker_failures"] += 1
+                fs["fault_detections"] += 1
+                self.tracer.instant(
+                    "worker_fail", pid=pid, tid=self._device_tid,
+                    cat="serve", args={"worker": w % pool.n_workers,
+                                       "replaced": len(lost)})
+        if pool is not None and self._parked:
+            r = inj.transfer_drop(boundary)
+            if r is not None:
+                slot = sorted(self._parked)[r % len(self._parked)]
+                retry = inj.plan.transfer_retry_boundaries
+                self._parked[slot] = clock + retry * self.chunk
+                fs["fault_transfer_drops"] += 1
+                fs["fault_detections"] += 1
+                self.tracer.instant(
+                    "transfer_drop", pid=pid, tid=slot, cat="serve",
+                    args={"retry_boundaries": retry})
         if not self.paged:
             return
-        fs = self.fault_stats
-        r = self.faults.page_flip(boundary)
+        r = inj.page_flip(boundary)
         if r is not None:
             pids = self.kv.corruptible_pages()
             if pids:
@@ -708,6 +954,12 @@ class ServeEngine:
                 sched.preempt(victim)
                 self.kv.release(vslot)
                 self._done[vslot] = True
+                # a parked victim's transfer is moot: its pages are gone
+                # and it re-prefills on resume
+                self._parked.pop(vslot, None)
+                if vslot in self._park_spans:
+                    self.tracer.end(pid=pid, tid=vslot)
+                    self._park_spans.discard(vslot)
                 self.tracer.end(pid=pid, tid=vslot)  # req span
                 self.tracer.instant("preempt", pid=pid, tid=vslot,
                                     cat="serve", args={"rid": victim.rid})
@@ -716,8 +968,12 @@ class ServeEngine:
                     break  # we were the youngest: self-preempted
 
     def _admit(self, params, sched: ContinuousBatchingScheduler,
-               clock: int, per_step: int, temp: float) -> None:
-        """Admit waiting requests into free slots (never preempting)."""
+               clock: int, per_step: int, temp: float,
+               pool: Optional[PrefillWorkerPool]) -> None:
+        """Admit waiting requests into free slots (never preempting). With
+        a prefill pool the prefill ran on the prefill role: the slot is
+        parked (frozen as a finished slot) while its pages cross the
+        modeled link."""
         now, mtr, pid = self.tracer.clock, self._m, self._trace_pid
         while True:
             req = sched.next_admittable(clock)
@@ -768,13 +1024,61 @@ class ServeEngine:
                 args={"tokens": n_prefill, "cached": req.cached_prefix_len})
             self.steptrace.record("prefill", dt, tokens=n_prefill,
                                   cached=req.cached_prefix_len, batch=1)
+            if pool is not None:
+                moved = (self.kv.pages_for(len(rp))
+                         - req.cached_prefix_len // self.page_size)
+                delay = self.transfer_model.delay_boundaries(moved)
+                self._parked[slot] = clock + delay * self.chunk
+                self._done[slot] = True
+                st = self.disagg_stats
+                st["transfers"] += 1
+                st["transfer_pages"] += moved
+                st["transfer_bytes"] += moved * self.page_bytes
+                self.tracer.begin(
+                    "park", pid=pid, tid=slot, cat="serve",
+                    args={"pages": moved, "delay_boundaries": delay})
+                self._park_spans.add(slot)
+
+    def _disagg_boundary(self, sched: ContinuousBatchingScheduler,
+                         pool: PrefillWorkerPool, clock: int) -> None:
+        """Disaggregation bookkeeping at a boundary: activate parked slots
+        whose modeled transfer has landed (rewriting the frozen position's
+        k/v is idempotent, so activation is token-identical to co-located
+        admission); route cold arrivals to the shallowest prefill queue;
+        hand finished prefills back to the decode-side queue; sample the
+        queue depths."""
+        pid = self._trace_pid
+        for slot, ready in list(self._parked.items()):
+            if clock >= ready:
+                del self._parked[slot]
+                self._done[slot] = False
+                if slot in self._park_spans:
+                    self.tracer.end(pid=pid, tid=slot)
+                    self._park_spans.discard(slot)
+        for r in [r for r in sched.waiting
+                  if r.arrival <= clock and not r.prefill_done
+                  and r.not_before <= clock]:
+            sched.waiting.remove(r)
+            pool.place(r, clock)
+        for r in pool.pop_ready(clock):
+            sched.add(r)
+        st = self.disagg_stats
+        st["boundaries"] += 1
+        depth = sum(pool.depths())
+        st["prefill_depth_sum"] += depth
+        st["prefill_depth_peak"] = max(st["prefill_depth_peak"], depth)
+        st["decode_depth_sum"] += len(sched.waiting)
+        st["decode_depth_peak"] = max(st["decode_depth_peak"],
+                                      len(sched.waiting))
 
     def run(self, params, requests: Sequence[Request], *,
             generator: Optional[torch.Generator] = None,
             temperature: Optional[float] = None) -> Dict[int, np.ndarray]:
         """Drain all requests; returns {rid: generated tokens}.
         ``generator`` (on the engine's device) drives sampling when the
-        temperature is > 0; default: seeded with 0."""
+        temperature is > 0; default: seeded with 0. On a mesh ``params``
+        is the full tree or this rank's shards (``shard_params``)."""
+        params = self.shard_params(params)
         sched = ContinuousBatchingScheduler(self.max_batch)
         self.scheduler = sched
         if generator is None:
@@ -792,11 +1096,18 @@ class ServeEngine:
         self._reset_carry()
         now, mtr, pid = self.tracer.clock, self._m, self._trace_pid
         self._req_obs = {}
+        self._park_spans = set()
         run_t0 = now()
+        pool: Optional[PrefillWorkerPool] = None
+        if self.disaggregate:
+            pool = PrefillWorkerPool(self.prefill_workers, self.span_len,
+                                     self.chunk)
+            self.prefill_pool = pool
+            self._parked = {}
         clock = 0
         boundary = -1  # chunk-boundary index: the fault-schedule clock
         per_step = 1 + self.draft_k if self._use_spec else 1
-        while sched.has_work():
+        while sched.has_work() or (pool is not None and pool.pending()):
             boundary += 1
             wall = now()
             for r in sched.waiting:
@@ -810,25 +1121,31 @@ class ServeEngine:
                 for r in list(sched.waiting):
                     if r.arrival <= clock and self.admission.should_shed(
                             r, clock, chunk=self.chunk,
-                            span_len=self.span_len, disaggregated=False):
+                            span_len=self.span_len,
+                            disaggregated=pool is not None):
                         sched.shed_request(r)
                         self.fault_stats["shed_requests"] += 1
                         self.tracer.instant(
                             "shed", pid=pid, tid=self._device_tid,
                             cat="serve", args={"rid": r.rid})
+            if pool is not None:
+                self._disagg_boundary(sched, pool, clock)
             if self.faults is not None:
                 # quarantined pages and failed slots are settled before
                 # admission or the chunk can observe them
-                self._apply_faults(boundary, clock, sched)
+                self._apply_faults(boundary, clock, sched, pool)
             if self.paged:
                 self._grow_or_preempt(sched, per_step)
-            self._admit(params, sched, clock, per_step, temp)
+            self._admit(params, sched, clock, per_step, temp, pool)
             if not sched.running:
                 if sched.next_admittable(clock) is not None:
                     raise RuntimeError(
                         "admission stalled with an empty batch: the page "
                         "pool cannot hold one request (shrink window or "
                         "grow num_pages)")
+                if pool is not None and pool.pending():
+                    clock += self.chunk  # prefill workers still cooking
+                    continue
                 if not sched.waiting:
                     # shedding emptied the queue this boundary; the loop
                     # condition settles whether work remains
@@ -839,10 +1156,21 @@ class ServeEngine:
                           for r in sched.waiting)
                 clock = max(clock + self.chunk, nxt)
                 continue
+            if pool is not None and all(s in self._parked
+                                        for s in sched.running):
+                # every running slot is frozen in transfer: the decode
+                # role is idle, so the chunk is skipped (frozen slots emit
+                # nothing and their state is untouched) and the clock
+                # advances
+                clock += self.chunk
+                st = self.disagg_stats
+                st["transfer_stall_boundaries"] += 1
+                st["decode_idle_boundaries"] += 1
+                continue
             # one device-resident chunk
             sched.record_occupancy(len(sched.running))
             chunk_t0 = now()
-            live = len(sched.running)
+            live = sum(1 for s in sched.running if s not in self._parked)
             table = self.kv.table_device() if self.paged else None
             # under queue pressure, a plain chunk instead of a speculative
             # one: token-identical, since acceptance only ever matches the
@@ -869,6 +1197,11 @@ class ServeEngine:
                         cat="serve", args={"extra_boundaries": extra})
             self.counters["chunks"] += 1
             self.counters["decode_steps"] += self.chunk
+            if pool is not None and self._parked:
+                st = self.disagg_stats
+                st["transfer_stall_boundaries"] += 1
+                if all(s in self._parked for s in sched.running):
+                    st["decode_idle_boundaries"] += 1
             # drain: the single host read per chunk
             b = self.max_batch
             flat = torch.cat([toks.reshape(-1).to(torch.int32),
@@ -882,6 +1215,8 @@ class ServeEngine:
             chunk_dt = wall_drain - chunk_t0
             emitted = 0
             for slot in list(sched.running):
+                if slot in self._parked:
+                    continue  # frozen in transfer: emitted PADs only
                 req = sched.running[slot]
                 if use_spec:
                     # toks_h[slot]: (chunk, 1+draft_k); emitted tokens
@@ -983,7 +1318,12 @@ class ServeEngine:
         Kept as a cross-check oracle of ``generate``. Samples from
         ``generator`` when it is given and the temperature is > 0. The
         batch may carry ``enc_feats`` and mrope ``positions``. Returns
-        (B, max_new) int32 tokens on the device."""
+        (B, max_new) int32 tokens on the device. One device only: its
+        dense caches do not run on a mesh."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "generate_pertoken runs the dense caches, which are not "
+                "ported to a mesh")
         dev_batch = {k: torch.as_tensor(np.asarray(v)).to(self.device)
                      for k, v in batch.items()}
         dev_batch["tokens"] = dev_batch["tokens"].to(torch.int32)

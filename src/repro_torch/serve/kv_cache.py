@@ -14,10 +14,16 @@ LRU pool of unreferenced cached pages and CRC stamps of published pages.
 The host bookkeeping is the reference's line for line; only the pools are
 torch tensors on the engine's device, updated in place.
 
+On a serving mesh (``ctx.plan``) each rank's pool (and its int8 scale
+pages) holds the rank's block of the KV heads, the block its attention
+reads (sharding.plan); page ids, the page table, copy-on-write, the
+prefix index and the CRC stamps' bookkeeping are host state, identical
+on every rank (each rank stamps and checks its own block's bytes).
+
 ``DenseKVCache`` is the dense backend: one (n_blocks, max_batch, W, KV, D)
 k/v cache per sublayer, a ring when a sliding window makes W smaller than
-the serve window (an encoder-decoder's ring and cross k/v per layer). The
-reference's mesh placement is not ported.
+the serve window (an encoder-decoder's ring and cross k/v per layer). It
+does not run on a mesh.
 """
 
 from __future__ import annotations
@@ -344,12 +350,27 @@ class PagedKVCache:
 
     # ---------------------------------------------------------- accounting
 
+    def _kv_heads(self) -> Tuple[int, int]:
+        """(KV heads of the model, KV heads this pool holds)."""
+        kv = self.cfg.n_kv_heads
+        plan = self.ctx.plan
+        return kv, (kv if plan is None else plan.kv_local)
+
+    def global_leaf_shapes(self) -> List[Tuple[str, Tuple[int, ...]]]:
+        """(path, shape with every KV head) of each pool leaf: stacked
+        (n_blocks, N, P, KV[, D])."""
+        kv, _ = self._kv_heads()
+        return [(path, leaf.shape[:3] + (kv,) + leaf.shape[4:])
+                for path, leaf in tree_items(self.pages)]
+
     def per_token_bytes(self) -> int:
         """Device bytes held per cached token across all layers (k + v
-        pages plus int8 scale pages)."""
+        pages plus int8 scale pages), over every KV head: on a mesh, the
+        whole model's, as the reference counts its global pool."""
+        kv, local = self._kv_heads()
         total = sum(leaf.element_size() * leaf.numel()
                     for _, leaf in tree_items(self.pages))
-        return total // (self.num_pages * self.page_size)
+        return total * kv // local // (self.num_pages * self.page_size)
 
     def dedup_stats(self) -> Dict[str, int]:
         shared = int(self.counters["pages_shared"])

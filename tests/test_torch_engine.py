@@ -178,14 +178,19 @@ def test_eos_and_sampling(qwen):
 
 
 def test_unported_features_raise(qwen):
-    """mesh= and disaggregate=True are not ported yet. The dense backend
-    is: there, speculation and prefix caching raise ValueError, as in the
-    reference engine."""
+    """mesh= runs the paged backend only: on the dense caches it is not
+    ported and raises NotImplementedError (disaggregate=True and the
+    paged mesh are ported; tests/test_torch_sharding.py and
+    tests/test_torch_disagg.py hold them). On the dense backend
+    speculation and prefix caching raise ValueError, as in the reference
+    engine."""
     cfg = qwen[0]
     ctx = TCtx(compute_dtype=torch.float32, device="cpu")
-    for kw in (dict(mesh=object()), dict(disaggregate=True)):
-        with pytest.raises(NotImplementedError):
-            TEngine(cfg, ctx, window=32, **kw)
+    with pytest.raises(NotImplementedError, match="dense and ring"):
+        TEngine(cfg, ctx, window=32, paged=False,
+                mesh={"data": 1, "model": 2})
+    eng = TEngine(cfg, ctx, window=32, disaggregate=True)
+    assert eng.transfer_model is not None and eng.paged
     jctx = JCtx(compute_dtype=jnp.float32)
     for kw in (dict(draft_k=2), dict(prefix_cache=True)):
         for engine, c in ((JEngine, jctx), (TEngine, ctx)):

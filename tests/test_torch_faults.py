@@ -5,8 +5,8 @@ byte), the startup self-test through the plain kernels, weight storage
 quantization, and the engine under faults and admission on qwen2 smoke at
 f32: survivors' tokens, ``fault_stats``, scheduler stats and the failed
 and shed request ids equal the JAX ``ServeEngine``'s in the scenarios of
-tests/test_serve_faults.py (co-located: the port has no disaggregation
-yet, so the worker-failure and transfer-drop faults never fire)."""
+tests/test_serve_faults.py, co-located and disaggregated (two prefill
+workers: there the worker-failure and transfer-drop faults fire too)."""
 
 import itertools
 
@@ -225,17 +225,19 @@ def test_startup_bist_catches_the_reference_planted_faults():
 
 
 def _engines(cfg, *, faults=None, admission=None, retry_budget=3,
-             spec=True, int8=False):
+             spec=True, int8=False, disagg=False):
     """The JAX and port engines of tests/test_serve_faults.py::_build,
-    co-located; ``faults``/``admission`` are plan/policy kwargs."""
+    co-located or (``disagg``) disaggregated over two prefill workers;
+    ``faults``/``admission`` are plan/policy kwargs."""
     kw = dict(window=32, max_batch=2, chunk=2, page_size=8,
-              draft_k=2 if spec else 0, retry_budget=retry_budget)
+              draft_k=2 if spec else 0, retry_budget=retry_budget,
+              disaggregate=disagg, prefill_workers=2 if disagg else 1)
     jctx = JCtx(compute_dtype=jnp.float32, q_chunk=64,
                 decode_cache_dtype=jnp.int8 if int8 else None)
     tctx = TCtx(compute_dtype=torch.float32,
                 decode_cache_dtype=torch.int8 if int8 else None,
                 device="cpu")
-    je = JEngine(cfg, jctx, disaggregate=False, prefill_workers=1,
+    je = JEngine(cfg, jctx,
                  faults=(None if faults is None else jfaults.FaultInjector(
                      jfaults.FaultPlan(**faults))),
                  admission=(None if admission is None else
@@ -275,6 +277,12 @@ SCENARIOS = {
                           spec=False, n=4, late=True),
     "spec_off_under_pressure": dict(admission=dict(spec_off_queue_depth=0),
                                     n=4),
+    # tests/test_serve_faults.py::
+    # test_survivor_token_parity_under_full_fault_schedule: disaggregated
+    # prefill + prefix cache + speculation under worker kills, page
+    # flips, transfer drops and stragglers
+    "disagg_chaos_f32": dict(faults=CHAOS, disagg=True),
+    "disagg_chaos_int8_pages": dict(faults=CHAOS, int8=True, disagg=True),
 }
 
 
@@ -314,6 +322,18 @@ def test_engine_under_faults_matches_reference(qwen, name):
         assert fs["shed_spec_chunks"] > 0 and fs["shed_requests"] == 0
     if name == "disabled_injector":
         assert sum(fs.values()) == 0
+    if name.startswith("disagg"):
+        assert fs["fault_worker_failures"] > 0
+        assert fs["fault_page_corruptions"] > 0
+        assert fs["fault_pages_quarantined"] > 0
+        assert not (te.kv._quarantined & set(te.kv._index))
+        assert te.transfer_stats() == je.transfer_stats()
+        assert te.prefill_pool.stats == je.prefill_pool.stats
+        assert len(tout) >= 2  # the schedule must not wipe out the batch
+        base = _engines(cfg, int8=kw.get("int8", False), disagg=True)[1]
+        clean = base.run(tp, _reqs(TRequest, cfg, **rq))
+        for rid in tout:
+            np.testing.assert_array_equal(tout[rid], clean[rid])
 
 
 # ------------------------------------------------- weight quantization

@@ -62,10 +62,17 @@ def _np(x):
 
 
 def _check_pages(jpages, tpages, pool):
+    """The pools equal the reference's page for page, apart from the
+    trash page 0: the port stores zeros there (the order of its duplicate
+    writes is undefined on the card), where the reference keeps the
+    garbage row that wrote last."""
     for sl, sub in jpages.items():
         for name, jarr in sub.items():
             want, got = _np(jarr), _np(tpages[sl][name])
             assert want.shape == got.shape
+            if name in ("k", "v"):
+                assert not got[:, 0].any(), (sl, name)
+            want, got = want[:, 1:], got[:, 1:]  # (n_blocks, pages, ...)
             if pool == "f32":
                 np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
             elif pool == "bf16":

@@ -197,8 +197,16 @@ def test_cuda_impl_refuses_cpu_tensors_and_mesh():
     tg = torch.from_numpy(GIDS)
     with pytest.raises(ValueError, match="CUDA"):
         tops.grouped_matmul(tx, tw, tg, impl="cuda")
-    with pytest.raises(NotImplementedError):
-        tops.grouped_matmul(tx, tw, tg, impl="ref", mesh=object())
+    # a mesh whose expert axis is 1 runs the plain call; experts that do
+    # not split the axis raise (the expert-parallel run over gloo ranks
+    # is in tests/test_torch_sharding.py)
+    want = tops.grouped_matmul(tx, tw, tg, impl="ref")
+    got = tops.grouped_matmul(tx, tw, tg, impl="ref",
+                              mesh={"data": 1, "model": 4})
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="do not split"):
+        tops.grouped_matmul(tx, tw, tg, impl="ref", mesh={"data": 2},
+                            n_experts=tw.shape[0] + 1)
     with pytest.raises(ValueError, match="impl"):
         tops.grouped_matmul(tx, tw, tg, impl="triton")
     with pytest.raises(ValueError, match="CUDA"):
